@@ -1,0 +1,22 @@
+"""compression_tpu_torch: the PyTorch/CUDA port of ``compression_tpu``.
+
+The JAX package ``compression_tpu`` is the reference; this package mirrors
+its module paths so every counterpart is easy to find:
+
+  ops/             lower_bound / upper_bound, same-padding
+  layers/          SignalConv2D, GDN (+ the hand-written CUDA kernel K1)
+  distributions/   Normal, DeepFactorized, uniform-noise adapters, tails
+  entropy_models/  batched (z) and scale-indexed (y) models, CDF tables
+  codec/           native C++ range coder (ctypes) + host API
+  models/          bmshj2018 scale-hyperprior Codec (host coder)
+  parallel/        double-buffered device/host coding pipeline
+  util/            PackedTensors, image padding, numeric, stage timing
+  csrc/            CUDA C++ kernels, built with nvcc at first use
+  convert.py       weight bridge from the JAX package's flax checkpoints
+
+It imports torch and numpy, never JAX or the JAX package. Entry points run
+on ``device="cuda"`` unless the caller asks for the CPU, and raise when CUDA
+is absent; no path falls back to the CPU on its own.
+"""
+
+__version__ = "0.1.0"

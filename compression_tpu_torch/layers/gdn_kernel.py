@@ -1,0 +1,183 @@
+"""K1, the fused GDN kernel: the hand-written CUDA kernel and its plain twin.
+
+Replaces the TPU kernel ``fused_gdn`` in
+``compression_tpu/layers/pallas/gdn_kernel.py`` (``pl.pallas_call`` at
+:65). Over the trailing channel axis: ``y = x * rsqrt(beta + (x*x) @
+gamma)``, or ``x * sqrt(...)`` for IGDN, with fp32 accumulation.
+
+* ``fused_gdn(x, beta, gamma, inverse)`` launches ``csrc/gdn.cu`` for a
+  CUDA tensor (or raises), and runs the plain twin ``fused_gdn_reference``
+  for a CPU tensor. ``fused_gdn.launches`` counts kernel launches.
+* The CUDA source is compiled with nvcc for ``sm_90a`` at first use, into
+  ``csrc/build/`` (listed in .gitignore), as a shared library with a plain
+  C interface loaded with ctypes; the library's name embeds a hash of the
+  source.
+
+Bound on an H100: fp32 CUDA-core operations, not memory (C*C FMAs against
+8*C bytes a row; see the note at the top of ``csrc/gdn.cu``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+__all__ = [
+    "fused_gdn",
+    "fused_gdn_reference",
+    "build",
+    "supported_channels",
+]
+
+_CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+_SOURCE = _CSRC / "gdn.cu"
+_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# Must agree with csrc/gdn.cu: 64-row tiles; gamma + one tile in the
+# 232,448 bytes of shared memory a block may use.
+_TILE_ROWS = 64
+_MAX_SMEM = 232448
+
+_lock = threading.Lock()
+_count_lock = threading.Lock()
+_lib = None
+build_log = ""
+
+
+def supported_channels(c: int) -> bool:
+    """Channel counts the kernel takes: multiples of 32 whose gamma and one
+    64-row tile fit in shared memory (32..192)."""
+    return c % 32 == 0 and 0 < c and 4 * (c * c + _TILE_ROWS * c) <= _MAX_SMEM
+
+
+def fused_gdn_reference(x, beta, gamma, inverse: bool = False):
+    """Plain PyTorch twin of the kernel (the CPU path and the test oracle)."""
+    norm = torch.matmul(x * x, gamma) + beta
+    return x * (torch.sqrt(norm) if inverse else torch.rsqrt(norm))
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> pathlib.Path:
+    """Compiles ``csrc/gdn.cu`` (if not built yet) and returns the library
+    path. ``build_log`` keeps ptxas's register/shared-memory report."""
+    global build_log
+    digest = hashlib.sha256(_SOURCE.read_bytes() + _ARCH.encode()).hexdigest()
+    out_dir = _CSRC / "build"
+    out_dir.mkdir(exist_ok=True)
+    so_path = out_dir / f"libtpc_gdn_{digest[:16]}.so"
+    if not so_path.exists():
+        tmp = so_path.with_suffix(".so.tmp%d" % os.getpid())
+        cmd = [
+            _nvcc(), _ARCH, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            str(_SOURCE), "-o", str(tmp),
+        ]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {_SOURCE}:\n{build_log}")
+        os.replace(tmp, so_path)
+    return so_path
+
+
+def _get_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.tpc_gdn_forward.restype = ctypes.c_int
+            lib.tpc_gdn_forward.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.tpc_gdn_error_string.restype = ctypes.c_char_p
+            lib.tpc_gdn_error_string.argtypes = [ctypes.c_int]
+            _lib = lib
+    return _lib
+
+
+def _check_inputs(x, beta, gamma) -> int:
+    c = x.shape[-1]
+    for name, t in (("x", x), ("beta", beta), ("gamma", gamma)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_gdn: {name} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"fused_gdn: {name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(
+                f"fused_gdn: {name} must be contiguous (x as (rows, C), e.g. "
+                "the NHWC view of a channels_last tensor)"
+            )
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_gdn: {name} must be 16-byte aligned")
+    if tuple(beta.shape) != (c,) or tuple(gamma.shape) != (c, c):
+        raise ValueError(
+            f"fused_gdn: beta {tuple(beta.shape)} / gamma {tuple(gamma.shape)}"
+            f" do not match C = {c}"
+        )
+    if not supported_channels(c):
+        raise ValueError(
+            f"fused_gdn: C = {c} unsupported (a multiple of 32 whose gamma "
+            "fits in shared memory: 32..192)"
+        )
+    return c
+
+
+def fused_gdn(x, beta, gamma, inverse: bool = False):
+    """Fused GDN over the trailing channel axis of ``x`` (any leading dims).
+
+    CPU tensors run :func:`fused_gdn_reference`; CUDA tensors launch the
+    kernel, or raise if it cannot (unsupported shape or type, build or
+    launch failure). There is no fallback between the two.
+    """
+    if x.device.type == "cpu":
+        return fused_gdn_reference(x, beta, gamma, inverse)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_gdn: unsupported device {x.device}")
+    c = _check_inputs(x, beta, gamma)
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, beta, gamma)
+    ):
+        # Like the TPU kernel, K1 is forward only: differentiate the twin.
+        raise RuntimeError(
+            "fused_gdn: the CUDA kernel has no backward; run it under "
+            "torch.no_grad() or differentiate fused_gdn_reference"
+        )
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    rows = x.numel() // c
+    if rows == 0:
+        return out
+    lib = _get_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.tpc_gdn_forward(
+            x.data_ptr(), beta.data_ptr(), gamma.data_ptr(), out.data_ptr(),
+            rows, c, int(bool(inverse)), stream,
+        )
+    if rc != 0:
+        msg = lib.tpc_gdn_error_string(rc).decode()
+        raise RuntimeError(f"fused_gdn kernel launch failed: {msg} ({rc})")
+    with _count_lock:  # pipeline worker threads launch concurrently
+        fused_gdn.launches += 1
+    return out
+
+
+fused_gdn.launches = 0

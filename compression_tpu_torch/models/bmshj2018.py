@@ -1,0 +1,429 @@
+"""bmshj2018: the scale-hyperprior image codec (counterpart of
+``compression_tpu/models/bmshj2018.py``: the four transforms and ``Codec``
+with the host range coder).
+
+A 4-layer GDN analysis/synthesis pair for the latent y, and a hyper pair
+producing a per-element scale sigma for y. z is coded with a factorized
+prior, y with the scale-indexed NoisyNormal tables. Each image becomes one
+4-field ``.tfci`` blob ``[y_string, z_string, xshape, zshape]``, byte-
+compatible with the JAX package's host-coded blobs.
+
+Layouts at the public boundary are the JAX package's: images NHWC uint8,
+latents ``(N, h, w, C)``. Not ported in this slice: the device (rANS)
+coder, ``decompress_batch_jit``, ``SpatialCodec``, the sharded transforms,
+the table disk cache, and training.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+from torch import nn
+
+from compression_tpu_torch.distributions.uniform_noise import NoisyNormal
+from compression_tpu_torch.entropy_models import (
+    SCALES_MIN,
+    ContinuousBatchedEntropyModel,
+    LocationScaleIndexedEntropyModel,
+)
+from compression_tpu_torch.layers import GDN, SignalConv2D
+from compression_tpu_torch.layers.priors import DeepFactorizedPrior
+from compression_tpu_torch.models.device_coding import parse_host_blobs
+from compression_tpu_torch.ops.math_ops import lower_bound
+from compression_tpu_torch.parallel.pipeline import Pipeline, stream_context
+from compression_tpu_torch.util import PackedTensors
+from compression_tpu_torch.util.device import resolve_device, strict_fp32
+from compression_tpu_torch.util.image import pad_to_multiple_np
+from compression_tpu_torch.util.numeric import slim_int
+from compression_tpu_torch.util.profiling import StageTimer
+
+__all__ = [
+    "Config",
+    "BMSHJ2018Model",
+    "Codec",
+    "load_model",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    num_filters: int = 192      # transform width
+    num_latents: int = 192      # channels of y
+    num_hyperlatents: int = 128  # channels of z
+    model_name: str = "bmshj2018-hyperprior"
+    downscale: int = 64          # 16 (analysis) * 4 (hyper-analysis)
+
+
+def _down(cin, cout, k, bias, activation=None):
+    return SignalConv2D(cin, cout, k, corr=True, strides_down=2,
+                        padding="same_zeros", use_bias=bias,
+                        activation=activation)
+
+
+def _up(cin, cout, k, activation=None):
+    return SignalConv2D(cin, cout, k, corr=False, strides_up=2,
+                        padding="same_zeros", use_bias=True,
+                        activation=activation)
+
+
+class AnalysisTransform(nn.Module):
+    def __init__(self, num_filters: int, num_latents: int):
+        super().__init__()
+        for i in range(3):
+            self.add_module(f"conv{i}", _down(3 if i == 0 else num_filters,
+                                              num_filters, 5, True))
+            self.add_module(f"gdn{i}", GDN(num_filters))
+        self.conv3 = _down(num_filters, num_latents, 5, False)
+
+    def forward(self, x):
+        for i in range(3):
+            x = getattr(self, f"gdn{i}")(getattr(self, f"conv{i}")(x))
+        return self.conv3(x)
+
+
+class SynthesisTransform(nn.Module):
+    def __init__(self, num_filters: int, num_latents: int):
+        super().__init__()
+        for i in range(3):
+            self.add_module(f"conv{i}", _up(num_latents if i == 0 else num_filters,
+                                            num_filters, 5))
+            self.add_module(f"igdn{i}", GDN(num_filters, inverse=True))
+        self.conv3 = _up(num_filters, 3, 5)
+
+    def forward(self, y):
+        for i in range(3):
+            y = getattr(self, f"igdn{i}")(getattr(self, f"conv{i}")(y))
+        return self.conv3(y)
+
+
+class HyperAnalysisTransform(nn.Module):
+    def __init__(self, num_filters: int, num_latents: int, num_hyperlatents: int):
+        super().__init__()
+        self.conv0 = SignalConv2D(num_latents, num_filters, 3, corr=True,
+                                  padding="same_zeros", use_bias=True,
+                                  activation=torch.relu)
+        self.conv1 = _down(num_filters, num_filters, 5, True, torch.relu)
+        self.conv2 = _down(num_filters, num_hyperlatents, 5, False)
+
+    def forward(self, y):
+        return self.conv2(self.conv1(self.conv0(torch.abs(y))))
+
+
+class HyperSynthesisTransform(nn.Module):
+    """z_hat -> sigma, bounded below by the scale table's lower edge."""
+
+    def __init__(self, num_filters: int, num_latents: int, num_hyperlatents: int):
+        super().__init__()
+        self.conv0 = _up(num_hyperlatents, num_filters, 5, torch.relu)
+        self.conv1 = _up(num_filters, num_filters, 5, torch.relu)
+        self.conv2 = SignalConv2D(num_filters, num_latents, 3, corr=True,
+                                  padding="same_zeros", use_bias=True)
+
+    def forward(self, z):
+        sigma = self.conv2(self.conv1(self.conv0(z)))
+        return lower_bound(sigma, SCALES_MIN)
+
+
+class BMSHJ2018Model(nn.Module):
+    """The four transforms plus the factorized hyperprior's parameters.
+
+    Submodule and parameter names follow the JAX package's param tree, so
+    :func:`compression_tpu_torch.convert.params_from_numpy` maps a flax
+    checkpoint onto ``load_state_dict``.
+    """
+
+    def __init__(self, config: Config = Config()):
+        super().__init__()
+        self.config = cfg = config
+        self.analysis = AnalysisTransform(cfg.num_filters, cfg.num_latents)
+        self.synthesis = SynthesisTransform(cfg.num_filters, cfg.num_latents)
+        self.hyper_analysis = HyperAnalysisTransform(
+            cfg.num_filters, cfg.num_latents, cfg.num_hyperlatents)
+        self.hyper_synthesis = HyperSynthesisTransform(
+            cfg.num_filters, cfg.num_latents, cfg.num_hyperlatents)
+        self.hyperprior = DeepFactorizedPrior((cfg.num_hyperlatents,))
+
+    def encode_latents(self, x):
+        """x in [0, 1] (N, H, W, 3) -> (y, z)."""
+        y = self.analysis(x)
+        return y, self.hyper_analysis(y)
+
+    def sigma_from_zhat(self, z_hat):
+        return self.hyper_synthesis(z_hat)
+
+    def synthesize(self, y_hat):
+        return self.synthesis(y_hat)
+
+
+def load_model(path, config: Config = Config()) -> BMSHJ2018Model:
+    """Builds the model and loads a flax msgpack checkpoint (on the CPU)."""
+    from compression_tpu_torch.convert import load_flax_msgpack, params_from_numpy
+
+    model = BMSHJ2018Model(config)
+    model.load_state_dict(params_from_numpy(load_flax_msgpack(path)))
+    return model
+
+
+class _EncodeWork:
+    """In-flight encode: host copies (filled once ``event`` fires) and the
+    device symbols kept for the rare wider refetch."""
+
+    __slots__ = ("y8", "z16", "rows", "fits", "y32", "z32", "event", "hw", "n")
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
+class _DecodeWork:
+    __slots__ = ("rows", "event", "y_strings", "shape", "xshape")
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
+class Codec:
+    """The trained model on a device, plus its CDF tables, as a codec.
+
+    Structure (as in the JAX package):
+
+    * encode: one asynchronous device chain on the codec's CUDA stream
+      (transforms -> symbols -> z_hat -> sigma -> CDF rows), ending in
+      non-blocking copies to pinned host memory; then the host range-codes;
+    * :meth:`compress_iter` / :meth:`decompress_iter` double-buffer batches
+      through :class:`~compression_tpu_torch.parallel.pipeline.Pipeline`;
+    * every stage is accounted in ``self.timer``.
+
+    Bit-exactness: what the decoder must reproduce (z_hat -> sigma -> rows)
+    goes through one function shared by both paths, ``_rows``, which runs
+    the hyper-synthesis one image at a time, so the convolutions see the
+    same shapes (and cuDNN the same algorithms) whatever the batch size;
+    z_hat is ``int symbols + f32 offset`` on both sides. On CUDA the codec
+    pins float32 math (no TF32) and deterministic cuDNN
+    (:func:`~compression_tpu_torch.util.device.strict_fp32`).
+
+    Args:
+      model: a :class:`BMSHJ2018Model` (moved to ``device``).
+      device: ``"cuda"`` (default; raises if absent) or ``"cpu"``.
+      tables: optional ``{"side": CdfTables, "main": CdfTables}`` to use
+        instead of building them from the model.
+    """
+
+    def __init__(self, model: BMSHJ2018Model, device="cuda", tables=None):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            strict_fp32()
+            self.stream = torch.cuda.Stream(self.device)
+        else:
+            self.stream = None
+        self.cfg = model.config
+        self.model = model.to(self.device).eval()
+        self.timer = StageTimer(self.device)
+        tables = tables or {}
+        self.side_em = ContinuousBatchedEntropyModel(
+            model.hyperprior(device="cpu"), coding_rank=3, compression=True,
+            tables=tables.get("side"),
+        )
+        self.em = LocationScaleIndexedEntropyModel(
+            NoisyNormal, coding_rank=3, compression=True,
+            tables=tables.get("main"),
+        )
+        self._z_off = self.side_em.symbol_offset(self.device)
+
+    @contextlib.contextmanager
+    def _on_device(self):
+        with stream_context(self.stream), torch.inference_mode():
+            yield
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """Starts a non-blocking upload from pinned host memory (CUDA). A
+        pageable copy would wait for the whole stream, including the other
+        pipeline stage's work."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """Starts a non-blocking copy into pinned host memory (CUDA)."""
+        if self.device.type != "cuda":
+            return t
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return out.copy_(t, non_blocking=True)
+
+    def _event(self):
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        return event
+
+    # -- shared device functions ---------------------------------------------
+
+    def _front(self, x_uint8: torch.Tensor):
+        x = x_uint8.to(torch.float32) / 255.0
+        y, z = self.model.encode_latents(x)
+        z_sym = torch.round(z - self._z_off).to(torch.int32)
+        y_sym = torch.round(y).to(torch.int32)
+        # z_hat exactly as the decoder forms it: int symbols + f32 offset.
+        z_hat = z_sym.to(torch.float32) + self._z_off
+        return y_sym, z_sym, z_hat
+
+    def _rows(self, z_hat: torch.Tensor) -> torch.Tensor:
+        """z_hat -> uint8 CDF rows; encode and decode both call this."""
+        sigma = torch.cat([
+            self.model.sigma_from_zhat(z_hat[i : i + 1])
+            for i in range(z_hat.shape[0])
+        ])
+        return self.em.rows(sigma)
+
+    def _synthesize(self, y_hat: torch.Tensor) -> torch.Tensor:
+        x = self.model.synthesize(y_hat.to(torch.float32))
+        return torch.clamp(torch.round(x * 255.0), 0, 255).to(torch.uint8)
+
+    # -- encode pipeline stages ----------------------------------------------
+
+    def _dispatch_encode(self, images: np.ndarray) -> _EncodeWork:
+        """Device stage: pad, upload, enqueue the encode chain and the
+        copies of its results to the host. Returns without waiting."""
+        x, hw = pad_to_multiple_np(np.asarray(images, np.uint8),
+                                   self.cfg.downscale)
+        with self.timer.stage("enc/dispatch"):
+            y_sym, z_sym, z_hat = self._front(self._to_device(x))
+            rows = self._rows(z_hat)
+            fit8 = torch.all(torch.abs(y_sym) <= 127)
+            fit16 = torch.all(torch.abs(y_sym) <= 32767) & torch.all(
+                torch.abs(z_sym) <= 32767)
+            work = _EncodeWork(
+                y8=self._to_host(y_sym.to(torch.int8)),
+                z16=self._to_host(z_sym.to(torch.int16)),
+                rows=self._to_host(rows),
+                fits=self._to_host(torch.stack([fit8, fit16])),
+                y32=y_sym, z32=z_sym, event=self._event(), hw=hw, n=x.shape[0],
+            )
+        return work
+
+    def _finish_encode(self, w: _EncodeWork) -> List[bytes]:
+        """Host stage: wait for the device chain, range-code, pack blobs."""
+        with self.timer.stage("enc/fetch"):
+            if w.event is not None:
+                w.event.synchronize()
+            fit8, fit16 = (bool(v) for v in w.fits.cpu().numpy())
+            if not fit16:
+                y_sym = w.y32.cpu().numpy()
+                z_sym = w.z32.cpu().numpy()
+            else:
+                y_sym = (w.y8 if fit8 else w.y32).cpu().numpy().astype(np.int32)
+                z_sym = w.z16.cpu().numpy().astype(np.int32)
+            rows = w.rows.cpu().numpy()
+        n = w.n
+        zshape = z_sym.shape[1:3]
+        with self.timer.stage("enc/code_z"):
+            z_strings = self.side_em.compress_symbols(z_sym)
+        with self.timer.stage("enc/code_y"):
+            y_strings = self.em.compress_symbols(
+                y_sym.reshape(n, -1), rows.reshape(n, -1)
+            )
+        with self.timer.stage("enc/pack"):
+            h, wd = w.hw
+            blobs = []
+            for i in range(n):
+                packed = PackedTensors()
+                packed.model = self.cfg.model_name
+                packed.pack([
+                    y_strings[i],
+                    z_strings[i],
+                    np.array([h, wd], np.int32),
+                    np.array(zshape, np.int32),
+                ])
+                blobs.append(packed.string)
+        return blobs
+
+    # -- decode pipeline stages ----------------------------------------------
+
+    def _dispatch_decode(self, blobs: List[bytes]) -> _DecodeWork:
+        """Parse blobs, host-decode z, enqueue z_hat -> sigma -> rows and
+        the copy of the rows to the host."""
+        with self.timer.stage("dec/parse"):
+            y_strings, z_strings, xshape, zshape = parse_host_blobs(blobs)
+        with self.timer.stage("dec/code_z"):
+            z_hat = self.side_em.decompress(
+                z_strings, tuple(int(v) for v in zshape)
+            )
+        with self.timer.stage("dec/dispatch"):
+            rows = self._rows(self._to_device(z_hat))
+            work = _DecodeWork(
+                rows=self._to_host(rows), event=self._event(),
+                y_strings=y_strings, shape=tuple(rows.shape), xshape=xshape,
+            )
+        return work
+
+    def _finish_decode(self, w: _DecodeWork) -> np.ndarray:
+        """Host stage: wait for the rows, range-decode y, synthesize, fetch
+        the reconstruction."""
+        with self.timer.stage("dec/fetch_rows"):
+            if w.event is not None:
+                w.event.synchronize()
+            rows = w.rows.cpu().numpy()
+        n = len(w.y_strings)
+        with self.timer.stage("dec/code_y"):
+            values = self.em.decode_symbols(w.y_strings, rows.reshape(n, -1))
+        with self.timer.stage("dec/synth"):
+            y_hat = self._to_device(slim_int(values.reshape(w.shape)))
+            x_hat = self._to_host(self._synthesize(y_hat))
+            event = self._event()
+        with self.timer.stage("dec/fetch_image"):
+            if event is not None:
+                event.synchronize()
+            x_hat = x_hat.numpy()
+        return x_hat[:, : int(w.xshape[0]), : int(w.xshape[1]), :]
+
+    # -- streaming paths (double-buffered device/host overlap) ---------------
+
+    @staticmethod
+    def _check_coder(coder: str) -> None:
+        if coder == "device":
+            raise NotImplementedError(
+                "coder='device' (on-device rANS) is not yet ported to the "
+                "PyTorch package; use coder='host'"
+            )
+        if coder != "host":
+            raise ValueError(f"unknown coder {coder!r} (host|device)")
+
+    def compress_iter(self, batches, depth: int = 2, coder: str = "host"):
+        """Pipelined encode over an iterable of uint8 (N, H, W, 3) stacks;
+        yields a list of .tfci blobs per batch, in order."""
+        self._check_coder(coder)
+        yield from Pipeline(self._dispatch_encode, self._finish_encode,
+                            depth, self.stream).run(batches)
+
+    def decompress_iter(self, blob_batches, depth: int = 2):
+        """Pipelined decode over an iterable of blob lists (each decoded as
+        one batch); yields uint8 (N, H, W, 3) stacks."""
+        yield from Pipeline(self._dispatch_decode, self._finish_decode,
+                            depth, self.stream).run(blob_batches)
+
+    # -- one-shot wrappers ---------------------------------------------------
+
+    def compress(self, image: np.ndarray, coder: str = "host") -> bytes:
+        return self.compress_batch(np.asarray(image, np.uint8)[None], coder)[0]
+
+    def compress_batch(self, images: np.ndarray, coder: str = "host") -> list:
+        """Compresses a uint8 (N, H, W, 3) stack; one .tfci blob each."""
+        self._check_coder(coder)
+        with self._on_device():
+            return self._finish_encode(self._dispatch_encode(images))
+
+    def decompress_batch(self, blobs: list) -> np.ndarray:
+        """Decompresses same-size host-coded .tfci blobs as one batch."""
+        with self._on_device():
+            return self._finish_decode(self._dispatch_decode(blobs))
+
+    def decompress(self, data: bytes) -> np.ndarray:
+        return self.decompress_batch([data])[0]
+
