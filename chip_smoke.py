@@ -1,4 +1,5 @@
-"""On-card smoke run of the PyTorch/CUDA port: bmshj2018 at full width.
+"""On-card smoke run of the PyTorch/CUDA port: bmshj2018 at full width, with
+the host coder and with the device (rANS) coder.
 
     python3 chip_smoke.py [--batches N] [--reps N]
 
@@ -7,19 +8,31 @@ of a checkout. Phases, each fatal on failure:
 
 1. environment: card name and power limit, torch/CUDA versions; float32
    math pinned (no TF32, deterministic cuDNN);
-2. build: the CUDA kernel (nvcc) and the range coder (g++), in parallel;
+2. build: the CUDA kernels gdn.cu and rans.cu (nvcc, one process each)
+   and the range coder (g++), all in parallel;
 3. kernels: K1 (fused GDN) against its plain twin at the six shapes the
    main path gives it (batch 8 of 768x512: 384x256, 192x128 and 96x64
-   rows of C=192, forward and inverse), tolerance 2e-5, with kernel, twin,
-   matmul-based yardstick and bound times;
-4. codec: ckpt/bmshj2018.msgpack through the weight bridge; compress_batch
-   then decompress_batch of 8 structured 768x512 images on the card, with
-   the kernel launch counts taken over exactly that run (6 for K1), byte-
+   rows of C=192, forward and inverse), tolerance 2e-5; K3 (rANS encode)
+   and K2 (rANS decode) against their twins on the real symbols and rows
+   of the 8 images (B=8, N=294,912, K=128, cap=885,056), on a synthetic
+   case (random tables with a full-mass row, 25% escapes, ragged N) and on
+   a corrupt stream, identical (integers: no tolerance); kernel, twin,
+   yardstick and bound times;
+4. codec (host coder): ckpt/bmshj2018.msgpack through the weight bridge;
+   compress_batch then decompress_batch of 8 structured 768x512 images,
+   with the launch counts taken over exactly that run (6 for K1), byte-
    identical re-compression, batch-1 decode equal to the batch-8 decode,
    PSNR and bpp, and a small input checked against the CPU path;
-5. throughput: compress_iter / decompress_iter over a few batches;
-6. profile: device time by kernel, and the device's idle share, over one
-   compress + decompress and over the pipelined iterators (torch.profiler).
+5. codec (device coder): the same images through compress_batch(coder=
+   "device") then decompress_batch, with launches over exactly that run
+   (K3 1, K2 1, K1 6), 5-field blobs with K=128 (no overflow fall-back),
+   a reconstruction bit-equal to the host coder's, byte-identical
+   re-compression, batch-1 decode equal to the batch-8 decode, and each y
+   stream within 1.1x the host coder's y string + 4K + 16 bytes;
+6. throughput: compress_iter / decompress_iter with each coder;
+7. profile: device time by kernel, and the device's idle share, over one
+   compress + decompress and over the pipelined iterators (torch.profiler),
+   with each coder.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -41,11 +54,20 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-# H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, HBM3 rate.
+# H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, HBM3 rate, and
+# int32 on the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz (the boost
+# clock that gives the 67 TFLOP/s fp32 figure: 132 x 128 x 2 x 1.98 GHz).
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
 BATCH, HEIGHT, WIDTH = 8, 512, 768
 GDN_TOL = 2e-5  # tests/test_pallas_gdn.py's tolerance for the TPU kernel
+# Integer operations a symbol, counted from the scan bodies (rans.py
+# step(); the kernels do the same work): the encoder's field mapping,
+# fc gather, pushes, renorm test and state update (u32 divide and modulo
+# counted as one each); the decoder's slot, two gathers, state update and
+# renorm; each escape's two bypass pops and payload decode.
+RANS_ENC_OPS, RANS_DEC_OPS, RANS_ESC_OPS = 28, 19, 9
 
 
 def log(msg: str) -> None:
@@ -72,9 +94,10 @@ def structured_image(h: int, w: int) -> np.ndarray:
     ).astype(np.uint8)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     """Mean device milliseconds of ``fn`` over ``reps`` back-to-back calls."""
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -106,21 +129,24 @@ def phase_environment() -> str:
 
 def phase_build() -> None:
     from compression_tpu_torch.codec import binding
-    from compression_tpu_torch.layers import gdn_kernel
+    from compression_tpu_torch.util import cuda_build
 
-    def timed(fn):
+    def timed(fn, *args):
         t0 = time.perf_counter()
-        fn()
+        fn(*args)
         return time.perf_counter() - t0
 
-    with cf.ThreadPoolExecutor(2) as pool:
-        nvcc = pool.submit(timed, gdn_kernel.build)
+    with cf.ThreadPoolExecutor(3) as pool:
+        nvcc = {src: pool.submit(timed, cuda_build.build, src)
+                for src in ("gdn.cu", "rans.cu")}
         gxx = pool.submit(timed, binding.get_lib)
-        log(f"build: nvcc gdn.cu {nvcc.result():.1f} s, "
-            f"g++ tpc_codec.cc {gxx.result():.1f} s")
-    for line in gdn_kernel.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+        log("build: " + ", ".join(f"nvcc {src} {fut.result():.1f} s"
+                                  for src, fut in nvcc.items())
+            + f", g++ tpc_codec.cc {gxx.result():.1f} s")
+    for src in nvcc:
+        for line in cuda_build.build_logs.get(src, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {src}: {line.strip()}")
 
 
 def gdn_shapes():
@@ -188,6 +214,167 @@ def phase_kernels(model, reps: int) -> dict:
     return dict(max_abs_err=max_err, **totals)
 
 
+def rans_bound_ms(values, rows, word_count, tables, decode: bool) -> tuple:
+    """(bound ms, "bytes" or "operations") of one rANS call on this data:
+    each input read once and each output written once over the HBM rate
+    (the stream's words as this run's streams need them, the tables once),
+    against its integer operations over the int32 rate."""
+    t = tables.on(values.device)
+    B, N = values.shape
+    r = rows.long()
+    s = values.long() - t.cdf_offset.long()[r]
+    escapes = int((~((s >= 0) & (s < t.escape.long()[r]))).sum())
+    table_bytes = 4 * (t.fc.numel() + 2 * t.num_rows)
+    if decode:
+        table_bytes += 4 * t.slot2sym.numel()
+    nbytes = (4 * B * N + rows.element_size() * B * N + 2 * word_count
+              + table_bytes + (B if decode else 5 * B))
+    ops = (RANS_DEC_OPS if decode else RANS_ENC_OPS) * B * N + RANS_ESC_OPS * escapes
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES, ops / PEAK_INT32_OPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def synthetic_rans_tables(rng, num_rows=16, precision=12, max_syms=60):
+    """Random quantized CDF rows (escape symbol last, as the entropy models
+    build them); row 0 is degenerate: its one symbol owns all 2^P slots."""
+    from compression_tpu_torch.codec import pmf_to_quantized_cdf
+    from compression_tpu_torch.entropy_models.continuous_base import CdfTables
+
+    cdfs, lengths = [], []
+    for _ in range(num_rows):
+        n = rng.randint(2, max_syms)
+        cdfs.append(pmf_to_quantized_cdf(rng.rand(n) ** 2 + 1e-3, [n], precision)[0])
+        lengths.append(n + 1)
+    cdfs[0], lengths[0] = np.array([0, 1 << precision, 1 << precision]), 3
+    cdf = np.zeros((num_rows, max(len(c) for c in cdfs)), np.int32)
+    for i, c in enumerate(cdfs):
+        cdf[i, : len(c)] = c
+    return CdfTables(cdf=cdf, cdf_length=np.array(lengths, np.int32),
+                     cdf_offset=rng.randint(-30, 30, num_rows).astype(np.int32),
+                     offset=np.zeros(num_rows), precision=precision)
+
+
+def check_rans_synthetic() -> None:
+    """K3/K2 against their twins on random tables (a full-mass row), 25%
+    escapes (two at the int32 limits) and a ragged N, B=8, K=128."""
+    from compression_tpu_torch.codec import rans
+
+    rng = np.random.RandomState(0)
+    tables = rans.RansTables(synthetic_rans_tables(rng))
+    B, N, K = BATCH, 100_003, 128
+    rows = rng.randint(0, tables.num_rows, (B, N))
+    lo = tables.cdf_offset.numpy()[rows].astype(np.int64)
+    n_sym = np.maximum(tables.escape.numpy()[rows], 1)
+    wide = rng.randint(-40_000, 40_000, (B, N)).astype(np.int64)
+    values = np.where(rng.rand(B, N) < 0.75,
+                      lo + (rng.rand(B, N) * n_sym).astype(np.int64), wide)
+    values = np.where(rows == 0, lo, values)
+    rows[-1, :2] = tables.num_rows - 1
+    values[-1, :2] = [np.iinfo(np.int32).min, np.iinfo(np.int32).max]
+    values = torch.from_numpy(values.astype(np.int32)).cuda()
+    rows = torch.from_numpy(rows.astype(np.uint8)).cuda()
+    cap = 3 * N + 2 * K + 64
+    got = rans.rans_encode(tables, values, rows, K, cap)
+    want = rans.rans_encode_reference(tables, values, rows, K, cap)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("words", "lengths", "overflow"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"K3 synthetic: {name} differ from the twin")
+    out, ok = rans.rans_decode(tables, got[0], rows, K, N)
+    want_out, want_ok = rans.rans_decode_reference(tables, got[0], rows, K, N)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, want_out) and torch.equal(ok, want_ok)
+            and bool(ok.all()) and torch.equal(out, values)):
+        raise AssertionError("K2 synthetic: decode differs from the twin or the input")
+    log(f"  synthetic: B={B} N={N} (ragged) K={K}, 16 random rows incl. a "
+        f"full-mass row, 25% escapes: K3 == twin, K2 == twin == input "
+        f"({int(want[1].sum())} words)")
+
+
+def phase_rans_kernels(codec, images, reps: int) -> dict:
+    """K3 and K2 against their twins at the main path's shapes, on the real
+    symbols and rows of the 8 images; timed in turns with the twins."""
+    from compression_tpu_torch.codec import rans
+    from compression_tpu_torch.models.device_coding import fetch_streams, pad_words, rans_for
+    from compression_tpu_torch.util.image import pad_to_multiple_np
+
+    x, _ = pad_to_multiple_np(images, codec.cfg.downscale)
+    with codec._on_device():
+        y_sym, _, z_hat = codec._front(codec._to_device(x))
+        rows = codec._rows(z_hat).reshape(BATCH, -1)
+        values = y_sym.reshape(BATCH, -1)
+    torch.cuda.synchronize()
+    N = values.shape[1]
+    _enc, _dec, K, cap = rans_for(codec, N)
+    tables = codec._rans_tables
+    want_n = HEIGHT * WIDTH // 256 * codec.cfg.num_latents  # 294,912 at 768x512
+    if (N, K, cap) != (want_n, 128, 3 * want_n + 2 * 128 + 64):
+        raise AssertionError(f"unexpected main-path shapes N={N} K={K} cap={cap}")
+
+    with torch.inference_mode():
+        got = rans.rans_encode(tables, values, rows, K, cap)
+        want = rans.rans_encode_reference(tables, values, rows, K, cap)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("words", "lengths", "overflow"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"K3: {name} differ from the twin")
+        if bool(got[2].any()):
+            raise AssertionError("K3: the main path's streams overflowed")
+        lengths = got[1].cpu().numpy()
+        # K2's input as the decoder builds it: the blobs' words, padded.
+        stream = torch.from_numpy(pad_words([
+            np.frombuffer(w, np.uint16) for w in fetch_streams(got[0], lengths)
+        ])).cuda()
+        out, ok = rans.rans_decode(tables, stream, rows, K, N)
+        want_out, want_ok = rans.rans_decode_reference(tables, stream, rows, K, N)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, want_out) and torch.equal(ok, want_ok)):
+            raise AssertionError("K2: decode differs from the twin")
+        if not (bool(ok.all()) and torch.equal(out, values)):
+            raise AssertionError("K2: decode does not give back the symbols")
+        log(f"  main path: B={BATCH} N={N} K={K} cap={cap}, stream {stream.shape[1]} "
+            f"words wide; y words per image {lengths.min()}..{lengths.max()}; "
+            f"K3 == twin (words, lengths, overflow), K2 == twin == symbols")
+
+        bad = stream.cpu()  # (no uint16 xor on CUDA)
+        bad[3, int(lengths[3]) // 2] ^= 0x5A5A
+        bad = bad.cuda()
+        c_out, c_ok = rans.rans_decode(tables, bad, rows, K, N)
+        w_out, w_ok = rans.rans_decode_reference(tables, bad, rows, K, N)
+        torch.cuda.synchronize()
+        if not (torch.equal(c_ok, w_ok) and torch.equal(c_out, w_out)):
+            raise AssertionError("K2: corrupt stream decodes differently from the twin")
+        if c_ok.tolist() != [b != 3 for b in range(BATCH)]:
+            raise AssertionError(f"K2: corrupt stream gave ok {c_ok.tolist()}")
+        log("  corrupt stream (image 3, one word flipped): ok = "
+            f"{c_ok.tolist()} from kernel and twin alike")
+        check_rans_synthetic()
+
+        word_count = int(lengths.sum())
+        results = {}
+        for name, kernel, twin, args in (
+            ("rans_encode", rans.rans_encode, rans.rans_encode_reference,
+             (tables, values, rows, K, cap)),
+            ("rans_decode", rans.rans_decode, rans.rans_decode_reference,
+             (tables, stream, rows, K, N)),
+        ):
+            runs = {"plain_ms": [], "ms": []}
+            for key, fn, n in (("plain_ms", twin, 1), ("ms", kernel, reps),
+                               ("ms", kernel, reps), ("plain_ms", twin, 1)):
+                runs[key].append(cuda_ms(lambda: fn(*args), n, warmup=key == "ms"))
+            times = {k: sum(v) / len(v) for k, v in runs.items()}
+            bound, bound_by = rans_bound_ms(values, rows, word_count, tables,
+                                            decode=name == "rans_decode")
+            T = -(-N // K)
+            log(f"  {name}: kernel {times['ms']:.4f} ms  twin {times['plain_ms']:.2f} ms  "
+                f"bound {bound:.4f} ms ({bound_by})  {1e3 * times['ms'] / T:.3f} us "
+                f"per step over T={T} serial steps "
+                f"(kernel runs {[round(v, 4) for v in runs['ms']]})")
+            results[name] = dict(max_abs_err=0.0, bound_ms=bound, bound_by=bound_by,
+                                 **times)
+    return results
+
+
 def check_small_against_cpu(model) -> None:
     """A small input through the card's codec and the CPU codec (same
     weights, same tables): latents agree to 1e-4, reconstructions to one
@@ -214,13 +401,10 @@ def check_small_against_cpu(model) -> None:
         raise AssertionError("card and CPU reconstructions disagree")
 
 
-def phase_codec(model) -> tuple:
+def phase_codec(codec, images) -> tuple:
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn
-    from compression_tpu_torch.models import bmshj2018
     from compression_tpu_torch.util.image import psnr_np
 
-    images = np.stack([structured_image(HEIGHT, WIDTH)] * BATCH)
-    codec = bmshj2018.Codec(model, device="cuda")
     codec.compress_batch(images[:1])  # warm-up: cuDNN handles, kernel load
 
     # The main path's run: the counts cover exactly compress + decompress.
@@ -249,8 +433,54 @@ def phase_codec(model) -> tuple:
         f"PSNR {psnr:.3f} dB, {bpp:.4f} bpp")
     if not (psnr > 25.0 and 0.0 < bpp < 8.0):
         raise AssertionError("implausible rate/distortion for the trained model")
-    check_small_against_cpu(model)
-    return codec, images, launches
+    check_small_against_cpu(codec.model)
+    return blobs, out
+
+
+def phase_codec_device(codec, images, host_blobs, host_out) -> dict:
+    """The device-coded main path: launches over exactly compress_batch +
+    decompress_batch, and its outputs against the host coder's."""
+    from compression_tpu_torch.codec import rans
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.util import PackedTensors
+    from compression_tpu_torch.util.image import psnr_np
+
+    codec.decompress_batch(codec.compress_batch(images[:1], coder="device"))  # warm-up
+    rans.rans_encode.launches = rans.rans_decode.launches = fused_gdn.launches = 0
+    t0 = time.perf_counter()
+    blobs = codec.compress_batch(images, coder="device")
+    t1 = time.perf_counter()
+    out = codec.decompress_batch(blobs)
+    t2 = time.perf_counter()
+    launches = {"rans_encode": rans.rans_encode.launches,
+                "rans_decode": rans.rans_decode.launches, "gdn": fused_gdn.launches}
+    log(f"codec (device coder): batch {BATCH} {HEIGHT}x{WIDTH}: compress "
+        f"{1e3 * (t1 - t0):.1f} ms, decompress {1e3 * (t2 - t1):.1f} ms; launches {launches}")
+    if launches != {"rans_encode": 1, "rans_decode": 1, "gdn": 6}:
+        raise AssertionError(f"expected K3 1, K2 1, K1 6 launches, saw {launches}")
+    y_dev, y_host = [], []
+    for blob, host in zip(blobs, host_blobs):
+        packed = PackedTensors(blob)
+        fields = packed.unpack([object, object, np.int32, np.int32, np.int32])
+        if int(fields[4][0]) != 128:
+            raise AssertionError(f"blob K = {int(fields[4][0])}, expected 128")
+        y_dev.append(len(bytes(fields[0][0])))
+        y_host.append(len(bytes(PackedTensors(host).unpack_one(0, object)[0])))
+        if y_dev[-1] > 1.1 * y_host[-1] + 4 * 128 + 16:
+            raise AssertionError(f"y stream {y_dev[-1]} B vs host y string {y_host[-1]} B")
+    if not np.array_equal(out, host_out):
+        raise AssertionError("device-coded reconstruction differs from the host coder's")
+    if codec.compress_batch(images, coder="device") != blobs:
+        raise AssertionError("device-coded re-compression is not byte-identical")
+    if not np.array_equal(codec.decompress(blobs[0]), out[0]):
+        raise AssertionError("batch-1 decode differs from the batch-8 decode")
+    bpp = 8.0 * sum(len(b) for b in blobs) / (BATCH * HEIGHT * WIDTH)
+    log(f"  5-field blobs, K=128 (no overflow fall-back); reconstruction == host "
+        f"coder's (PSNR {float(np.mean(psnr_np(out, images))):.3f} dB); {bpp:.4f} bpp; "
+        f"y stream {sum(y_dev)} B vs host y strings {sum(y_host)} B "
+        f"({sum(y_dev) / sum(y_host):.4f}x); re-compress byte-identical; "
+        f"batch-1 decode == batch-8 row 0")
+    return launches
 
 
 def phase_profile(label: str, run, top: int = 0) -> None:
@@ -275,10 +505,12 @@ def phase_profile(label: str, run, top: int = 0) -> None:
         log(f"profile ({label}): the profiler saw no device activity; not measured")
         return
     busy = sum(ms for ms, _ in per_kernel.values())
-    groups = {"K1 gdn": 0.0, "convolution": 0.0, "memcpy": 0.0, "other": 0.0}
+    groups = {"K1 gdn": 0.0, "K3/K2 rans": 0.0, "convolution": 0.0,
+              "memcpy": 0.0, "other": 0.0}
     for name, (ms, _) in per_kernel.items():
         low = name.lower()
         key = ("K1 gdn" if "gdn_kernel" in low else
+               "K3/K2 rans" if "rans_" in low else
                "memcpy" if "memcpy" in low else
                "convolution" if any(s in low for s in ("conv", "cudnn", "xmma", "gemm", "fprop"))
                else "other")
@@ -290,20 +522,20 @@ def phase_profile(label: str, run, top: int = 0) -> None:
         log(f"  {ms:8.2f} ms {calls:5d}x  {name[:110]}")
 
 
-def phase_throughput(codec, images, batches: int, card: str) -> None:
+def phase_throughput(codec, images, batches: int, card: str, coder: str) -> None:
     batch_list = [images] * batches
-    list(codec.compress_iter(batch_list[:1]))  # warm the pipeline
+    list(codec.compress_iter(batch_list[:1], coder=coder))  # warm the pipeline
     codec.timer.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    blob_batches = list(codec.compress_iter(batch_list))
+    blob_batches = list(codec.compress_iter(batch_list, coder=coder))
     t1 = time.perf_counter()
     decoded = list(codec.decompress_iter(blob_batches))
     t2 = time.perf_counter()
     if len(decoded) != batches or any(d.shape != images.shape for d in decoded):
         raise AssertionError("pipelined decode returned the wrong batches")
     n = batches * BATCH
-    log(f"throughput ({card}): compress_iter {n / (t1 - t0):.3f} img/s, "
+    log(f"throughput, {coder} coder ({card}): compress_iter {n / (t1 - t0):.3f} img/s, "
         f"decompress_iter {n / (t2 - t1):.3f} img/s, round trip "
         f"{n / (t2 - t0):.3f} img/s over {batches} batches of {BATCH}")
     log(codec.timer.report())
@@ -326,14 +558,22 @@ def main() -> int:
     phase_build()
     model = bmshj2018.load_model(ROOT / "ckpt" / "bmshj2018.msgpack")
     k1 = phase_kernels(model, args.reps)
-    codec, images, launches = phase_codec(model)
-    phase_throughput(codec, images, args.batches, card)
-    phase_profile(f"compress_batch + decompress_batch of {BATCH}",
-                  lambda: codec.decompress_batch(codec.compress_batch(images)),
-                  top=10)
-    batch_list = [images] * args.batches
-    phase_profile(f"compress_iter then decompress_iter, {args.batches} batches",
-                  lambda: list(codec.decompress_iter(list(codec.compress_iter(batch_list)))))
+    images = np.stack([structured_image(HEIGHT, WIDTH)] * BATCH)
+    codec = bmshj2018.Codec(model, device="cuda")
+    rans_k = phase_rans_kernels(codec, images, args.reps)
+    host_blobs, host_out = phase_codec(codec, images)
+    launches = phase_codec_device(codec, images, host_blobs, host_out)
+    for coder in ("host", "device"):
+        phase_throughput(codec, images, args.batches, card, coder)
+    for coder in ("host", "device"):
+        phase_profile(f"{coder} coder, compress_batch + decompress_batch of {BATCH}",
+                      lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)),
+                      top=10)
+        batch_list = [images] * args.batches
+        phase_profile(f"{coder} coder, compress_iter then decompress_iter, "
+                      f"{args.batches} batches",
+                      lambda: list(codec.decompress_iter(
+                          list(codec.compress_iter(batch_list, coder=coder)))))
 
     kernels = [{
         "name": "gdn",
@@ -348,6 +588,21 @@ def main() -> int:
         "bound_by": "operations",
         "library_ms": k1["library_ms"],
     }]
+    for name, replaces in (("rans_encode", "compression_tpu/codec/rans.py:178"),
+                           ("rans_decode", "compression_tpu/codec/rans.py:257")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "compression_tpu_torch/csrc/rans.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": rans_k[name]["max_abs_err"],
+            "ms": rans_k[name]["ms"],
+            "plain_ms": rans_k[name]["plain_ms"],
+            "bound_ms": rans_k[name]["bound_ms"],
+            "bound_by": rans_k[name]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes rANS
+        })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

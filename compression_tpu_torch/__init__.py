@@ -7,11 +7,12 @@ its module paths so every counterpart is easy to find:
   layers/          SignalConv2D, GDN (+ the hand-written CUDA kernel K1)
   distributions/   Normal, DeepFactorized, uniform-noise adapters, tails
   entropy_models/  batched (z) and scale-indexed (y) models, CDF tables
-  codec/           native C++ range coder (ctypes) + host API
-  models/          bmshj2018 scale-hyperprior Codec (host coder)
+  codec/           native C++ range coder (ctypes) + host API; the device
+                   rANS coder (kernels K3/K2) and its NumPy spec
+  models/          bmshj2018 scale-hyperprior Codec (host and device coders)
   parallel/        double-buffered device/host coding pipeline
   util/            PackedTensors, image padding, numeric, stage timing
-  csrc/            CUDA C++ kernels, built with nvcc at first use
+  csrc/            CUDA C++ kernels (gdn.cu, rans.cu), built with nvcc at first use
   convert.py       weight bridge from the JAX package's flax checkpoints
 
 It imports torch and numpy, never JAX or the JAX package. Entry points run

@@ -1,5 +1,7 @@
-"""Native entropy coding: the C++ range coder (cc/, byte-identical to the
-JAX package's) behind a ctypes binding, and its NumPy-facing host API."""
+"""Entropy coding: the C++ range coder (cc/, byte-identical to the JAX
+package's) behind a ctypes binding, and its NumPy-facing host API; the
+device rANS coder is :mod:`compression_tpu_torch.codec.rans` (kernels
+K3/K2, with :mod:`~compression_tpu_torch.codec.rans_ref` as its spec)."""
 
 from compression_tpu_torch.codec.host import (
     encode_capacity,

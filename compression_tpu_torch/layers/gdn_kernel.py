@@ -10,8 +10,7 @@ gamma)``, or ``x * sqrt(...)`` for IGDN, with fp32 accumulation.
   for a CPU tensor. ``fused_gdn.launches`` counts kernel launches.
 * The CUDA source is compiled with nvcc for ``sm_90a`` at first use, into
   ``csrc/build/`` (listed in .gitignore), as a shared library with a plain
-  C interface loaded with ctypes; the library's name embeds a hash of the
-  source.
+  C interface loaded with ctypes (:mod:`compression_tpu_torch.util.cuda_build`).
 
 Bound on an H100: fp32 CUDA-core operations, not memory (C*C FMAs against
 8*C bytes a row; see the note at the top of ``csrc/gdn.cu``).
@@ -20,14 +19,12 @@ Bound on an H100: fp32 CUDA-core operations, not memory (C*C FMAs against
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 import threading
 
 import torch
+
+from compression_tpu_torch.util import cuda_build
 
 __all__ = [
     "fused_gdn",
@@ -36,18 +33,13 @@ __all__ = [
     "supported_channels",
 ]
 
-_CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-_SOURCE = _CSRC / "gdn.cu"
-_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+_SOURCE = "gdn.cu"
 # Must agree with csrc/gdn.cu: 64-row tiles; gamma + one tile in the
 # 232,448 bytes of shared memory a block may use.
 _TILE_ROWS = 64
 _MAX_SMEM = 232448
 
-_lock = threading.Lock()
 _count_lock = threading.Lock()
-_lib = None
-build_log = ""
 
 
 def supported_channels(c: int) -> bool:
@@ -62,56 +54,21 @@ def fused_gdn_reference(x, beta, gamma, inverse: bool = False):
     return x * (torch.sqrt(norm) if inverse else torch.rsqrt(norm))
 
 
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
 def build() -> pathlib.Path:
     """Compiles ``csrc/gdn.cu`` (if not built yet) and returns the library
-    path. ``build_log`` keeps ptxas's register/shared-memory report."""
-    global build_log
-    digest = hashlib.sha256(_SOURCE.read_bytes() + _ARCH.encode()).hexdigest()
-    out_dir = _CSRC / "build"
-    out_dir.mkdir(exist_ok=True)
-    so_path = out_dir / f"libtpc_gdn_{digest[:16]}.so"
-    if not so_path.exists():
-        tmp = so_path.with_suffix(".so.tmp%d" % os.getpid())
-        cmd = [
-            _nvcc(), _ARCH, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            str(_SOURCE), "-o", str(tmp),
-        ]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {_SOURCE}:\n{build_log}")
-        os.replace(tmp, so_path)
-    return so_path
+    path; ptxas's report lands in ``cuda_build.build_logs["gdn.cu"]``."""
+    return cuda_build.build(_SOURCE)
 
 
-def _get_lib() -> ctypes.CDLL:
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.tpc_gdn_forward.restype = ctypes.c_int
-            lib.tpc_gdn_forward.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.tpc_gdn_error_string.restype = ctypes.c_char_p
-            lib.tpc_gdn_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
-    return _lib
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.tpc_gdn_forward.restype = ctypes.c_int
+    lib.tpc_gdn_forward.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.tpc_gdn_error_string.restype = ctypes.c_char_p
+    lib.tpc_gdn_error_string.argtypes = [ctypes.c_int]
 
 
 def _check_inputs(x, beta, gamma) -> int:
@@ -165,7 +122,7 @@ def fused_gdn(x, beta, gamma, inverse: bool = False):
     rows = x.numel() // c
     if rows == 0:
         return out
-    lib = _get_lib()
+    lib = cuda_build.load(_SOURCE, _declare)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.tpc_gdn_forward(

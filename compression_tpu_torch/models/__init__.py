@@ -1,1 +1,1 @@
-"""Codec models (this slice: bmshj2018 with the host coder)."""
+"""Codec models (bmshj2018, with the host and the device coder)."""

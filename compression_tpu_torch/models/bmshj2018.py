@@ -1,17 +1,24 @@
 """bmshj2018: the scale-hyperprior image codec (counterpart of
 ``compression_tpu/models/bmshj2018.py``: the four transforms and ``Codec``
-with the host range coder).
+with both entropy coders).
 
 A 4-layer GDN analysis/synthesis pair for the latent y, and a hyper pair
 producing a per-element scale sigma for y. z is coded with a factorized
-prior, y with the scale-indexed NoisyNormal tables. Each image becomes one
-4-field ``.tfci`` blob ``[y_string, z_string, xshape, zshape]``, byte-
-compatible with the JAX package's host-coded blobs.
+prior, y with the scale-indexed NoisyNormal tables, by one of two coders:
+
+* ``coder="host"``: the C++ range coder on the host; each image becomes a
+  4-field ``.tfci`` blob ``[y_string, z_string, xshape, zshape]``;
+* ``coder="device"``: y is K-lane rANS-coded on the card (kernels K3/K2,
+  :mod:`compression_tpu_torch.codec.rans`), z on the host; each image
+  becomes a 5-field blob ``[y_words, z_string, xshape, zshape, [K]]``.
+
+Both formats are byte-compatible with the JAX package's blobs, and the
+decoder detects the format per batch.
 
 Layouts at the public boundary are the JAX package's: images NHWC uint8,
-latents ``(N, h, w, C)``. Not ported in this slice: the device (rANS)
-coder, ``decompress_batch_jit``, ``SpatialCodec``, the sharded transforms,
-the table disk cache, and training.
+latents ``(N, h, w, C)``. Not ported yet: ``decompress_batch_jit``,
+``SpatialCodec``, the sharded transforms, the table disk cache, and
+training.
 """
 
 from __future__ import annotations
@@ -32,7 +39,14 @@ from compression_tpu_torch.entropy_models import (
 )
 from compression_tpu_torch.layers import GDN, SignalConv2D
 from compression_tpu_torch.layers.priors import DeepFactorizedPrior
-from compression_tpu_torch.models.device_coding import parse_host_blobs
+from compression_tpu_torch.models.device_coding import (
+    fetch_streams,
+    is_device_coded,
+    pad_words,
+    parse_device_blobs,
+    parse_host_blobs,
+    rans_for,
+)
 from compression_tpu_torch.ops.math_ops import lower_bound
 from compression_tpu_torch.parallel.pipeline import Pipeline, stream_context
 from compression_tpu_torch.util import PackedTensors
@@ -187,6 +201,27 @@ class _DecodeWork:
             setattr(self, k, v)
 
 
+class _RansEncodeWork:
+    """In-flight device-coded encode: the rANS stream on the device, host
+    copies of its lengths/overflow flags and of z, and the device symbols
+    and rows kept for the host-coder fall-back on overflow."""
+
+    __slots__ = ("stream", "lengths", "overflow", "z16", "fit16", "y32",
+                 "z32", "rows", "event", "hw", "K")
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
+class _RansDecodeWork:
+    __slots__ = ("image", "ok", "event", "xshape")
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
 class Codec:
     """The trained model on a device, plus its CDF tables, as a codec.
 
@@ -194,7 +229,9 @@ class Codec:
 
     * encode: one asynchronous device chain on the codec's CUDA stream
       (transforms -> symbols -> z_hat -> sigma -> CDF rows), ending in
-      non-blocking copies to pinned host memory; then the host range-codes;
+      non-blocking copies to pinned host memory; then the host range-codes
+      (``coder="host"``), or the chain goes on through the rANS encoder
+      K3 and only the compressed y words come back (``coder="device"``);
     * :meth:`compress_iter` / :meth:`decompress_iter` double-buffer batches
       through :class:`~compression_tpu_torch.parallel.pipeline.Pipeline`;
     * every stage is accounted in ``self.timer``.
@@ -295,18 +332,23 @@ class Codec:
                                    self.cfg.downscale)
         with self.timer.stage("enc/dispatch"):
             y_sym, z_sym, z_hat = self._front(self._to_device(x))
-            rows = self._rows(z_hat)
-            fit8 = torch.all(torch.abs(y_sym) <= 127)
-            fit16 = torch.all(torch.abs(y_sym) <= 32767) & torch.all(
-                torch.abs(z_sym) <= 32767)
-            work = _EncodeWork(
-                y8=self._to_host(y_sym.to(torch.int8)),
-                z16=self._to_host(z_sym.to(torch.int16)),
-                rows=self._to_host(rows),
-                fits=self._to_host(torch.stack([fit8, fit16])),
-                y32=y_sym, z32=z_sym, event=self._event(), hw=hw, n=x.shape[0],
-            )
+            work = self._host_coder_work(y_sym, z_sym, self._rows(z_hat), hw)
         return work
+
+    def _host_coder_work(self, y_sym, z_sym, rows, hw) -> _EncodeWork:
+        """Enqueues the copies the host coder needs: symbols in the
+        narrowest type that holds them, rows, and the range checks."""
+        fit8 = torch.all(torch.abs(y_sym) <= 127)
+        fit16 = torch.all(torch.abs(y_sym) <= 32767) & torch.all(
+            torch.abs(z_sym) <= 32767)
+        return _EncodeWork(
+            y8=self._to_host(y_sym.to(torch.int8)),
+            z16=self._to_host(z_sym.to(torch.int16)),
+            rows=self._to_host(rows),
+            fits=self._to_host(torch.stack([fit8, fit16])),
+            y32=y_sym, z32=z_sym, event=self._event(), hw=hw,
+            n=y_sym.shape[0],
+        )
 
     def _finish_encode(self, w: _EncodeWork) -> List[bytes]:
         """Host stage: wait for the device chain, range-code, pack blobs."""
@@ -330,18 +372,19 @@ class Codec:
                 y_sym.reshape(n, -1), rows.reshape(n, -1)
             )
         with self.timer.stage("enc/pack"):
-            h, wd = w.hw
-            blobs = []
-            for i in range(n):
-                packed = PackedTensors()
-                packed.model = self.cfg.model_name
-                packed.pack([
-                    y_strings[i],
-                    z_strings[i],
-                    np.array([h, wd], np.int32),
-                    np.array(zshape, np.int32),
-                ])
-                blobs.append(packed.string)
+            return self._pack(y_strings, z_strings, w.hw, zshape)
+
+    def _pack(self, y_streams, z_strings, hw, zshape, K=None) -> List[bytes]:
+        """One blob an image: 4 fields, plus ``[K]`` for a rANS y stream."""
+        blobs = []
+        for y, z in zip(y_streams, z_strings):
+            fields = [y, z, np.array(hw, np.int32), np.array(zshape, np.int32)]
+            if K is not None:
+                fields.append(np.array([K], np.int32))
+            packed = PackedTensors()
+            packed.model = self.cfg.model_name
+            packed.pack(fields)
+            blobs.append(packed.string)
         return blobs
 
     # -- decode pipeline stages ----------------------------------------------
@@ -383,29 +426,116 @@ class Codec:
             x_hat = x_hat.numpy()
         return x_hat[:, : int(w.xshape[0]), : int(w.xshape[1]), :]
 
+    # -- device-coded path (rANS on the card; codec/rans.py) -----------------
+    #
+    # y is entropy-coded on the card by K3 and decoded by K2, so only the
+    # compressed words cross to the host (and at decode the symbols never
+    # do). z stays host-coded: it is tiny, and the decoder needs it on the
+    # host first anyway. The symbols and rows come from the same _front and
+    # _rows as the host path, so the two coders agree on every value; only
+    # the bitstream differs (see codec/rans_ref.py).
+
+    def _dispatch_encode_rans(self, images: np.ndarray) -> _RansEncodeWork:
+        x, hw = pad_to_multiple_np(np.asarray(images, np.uint8),
+                                   self.cfg.downscale)
+        with self.timer.stage("enc/dispatch"):
+            y_sym, z_sym, z_hat = self._front(self._to_device(x))
+            rows = self._rows(z_hat)
+            n = x.shape[0]
+            enc, _dec, K, _cap = rans_for(self, y_sym[0].numel())
+            stream, lengths, overflow = enc(y_sym.reshape(n, -1),
+                                            rows.reshape(n, -1))
+            work = _RansEncodeWork(
+                stream=stream, lengths=self._to_host(lengths),
+                overflow=self._to_host(overflow),
+                z16=self._to_host(z_sym.to(torch.int16)),
+                fit16=self._to_host(torch.all(torch.abs(z_sym) <= 32767)),
+                y32=y_sym, z32=z_sym, rows=rows, event=self._event(), hw=hw,
+                K=K,
+            )
+        return work
+
+    def _finish_encode_rans(self, w: _RansEncodeWork) -> List[bytes]:
+        with self.timer.stage("enc/fetch"):
+            if w.event is not None:
+                w.event.synchronize()
+            lengths = w.lengths.cpu().numpy()
+            overflow = w.overflow.cpu().numpy()
+            z_sym = (w.z16 if bool(w.fit16) else w.z32).cpu().numpy().astype(np.int32)
+        if overflow.any():
+            # Pathological symbol statistics (e.g. an untrained model
+            # escaping everywhere at extreme magnitudes) overflow the
+            # stream's capacity: code this batch with the host coder, from
+            # the same device symbols and rows.
+            return self._finish_encode(
+                self._host_coder_work(w.y32, w.z32, w.rows, w.hw))
+        zshape = z_sym.shape[1:3]
+        with self.timer.stage("enc/code_z"):
+            z_strings = self.side_em.compress_symbols(z_sym)
+        with self.timer.stage("enc/fetch_stream"):
+            streams = fetch_streams(w.stream, lengths)
+        with self.timer.stage("enc/pack"):
+            return self._pack(streams, z_strings, w.hw, zshape, w.K)
+
+    def _dispatch_decode_rans(self, blobs: List[bytes]) -> _RansDecodeWork:
+        with self.timer.stage("dec/parse"):
+            y_words, z_strings, xshape, zshape, K = parse_device_blobs(blobs)
+        with self.timer.stage("dec/code_z"):
+            z_hat = self.side_em.decompress(
+                z_strings, tuple(int(v) for v in zshape)
+            )
+        with self.timer.stage("dec/dispatch"):
+            rows = self._rows(self._to_device(z_hat))
+            n = len(blobs)
+            _enc, dec, _K, _cap = rans_for(self, rows[0].numel(), K)
+            values, ok = dec(self._to_device(pad_words(y_words)),
+                             rows.reshape(n, -1))
+            image = self._synthesize(values.reshape(rows.shape))
+            work = _RansDecodeWork(image=self._to_host(image),
+                                   ok=self._to_host(ok), event=self._event(),
+                                   xshape=xshape)
+        return work
+
+    def _finish_decode_rans(self, w: _RansDecodeWork) -> np.ndarray:
+        with self.timer.stage("dec/fetch_image"):
+            if w.event is not None:
+                w.event.synchronize()
+            image, ok = w.image.numpy(), w.ok.cpu().numpy()
+        if not ok.all():
+            raise ValueError("corrupt device-coded bitstream (rANS state)")
+        return image[:, : int(w.xshape[0]), : int(w.xshape[1]), :]
+
+    def _dispatch_decode_any(self, blobs: List[bytes]):
+        if is_device_coded(blobs[0]):
+            return self._dispatch_decode_rans(blobs)
+        return self._dispatch_decode(blobs)
+
+    def _finish_decode_any(self, w) -> np.ndarray:
+        if isinstance(w, _RansDecodeWork):
+            return self._finish_decode_rans(w)
+        return self._finish_decode(w)
+
     # -- streaming paths (double-buffered device/host overlap) ---------------
 
-    @staticmethod
-    def _check_coder(coder: str) -> None:
+    def _enc_stages(self, coder: str):
         if coder == "device":
-            raise NotImplementedError(
-                "coder='device' (on-device rANS) is not yet ported to the "
-                "PyTorch package; use coder='host'"
-            )
+            return self._dispatch_encode_rans, self._finish_encode_rans
         if coder != "host":
             raise ValueError(f"unknown coder {coder!r} (host|device)")
+        return self._dispatch_encode, self._finish_encode
 
     def compress_iter(self, batches, depth: int = 2, coder: str = "host"):
         """Pipelined encode over an iterable of uint8 (N, H, W, 3) stacks;
-        yields a list of .tfci blobs per batch, in order."""
-        self._check_coder(coder)
-        yield from Pipeline(self._dispatch_encode, self._finish_encode,
-                            depth, self.stream).run(batches)
+        yields a list of .tfci blobs per batch, in order. ``coder="device"``
+        rANS-codes y on the card."""
+        dispatch, finish = self._enc_stages(coder)
+        yield from Pipeline(dispatch, finish, depth, self.stream).run(batches)
 
     def decompress_iter(self, blob_batches, depth: int = 2):
         """Pipelined decode over an iterable of blob lists (each decoded as
-        one batch); yields uint8 (N, H, W, 3) stacks."""
-        yield from Pipeline(self._dispatch_decode, self._finish_decode,
+        one batch, its coder detected from the blobs); yields uint8
+        (N, H, W, 3) stacks."""
+        yield from Pipeline(self._dispatch_decode_any, self._finish_decode_any,
                             depth, self.stream).run(blob_batches)
 
     # -- one-shot wrappers ---------------------------------------------------
@@ -414,16 +544,17 @@ class Codec:
         return self.compress_batch(np.asarray(image, np.uint8)[None], coder)[0]
 
     def compress_batch(self, images: np.ndarray, coder: str = "host") -> list:
-        """Compresses a uint8 (N, H, W, 3) stack; one .tfci blob each."""
-        self._check_coder(coder)
+        """Compresses a uint8 (N, H, W, 3) stack; one .tfci blob each, from
+        the host range coder (``"host"``) or the card's rANS (``"device"``)."""
+        dispatch, finish = self._enc_stages(coder)
         with self._on_device():
-            return self._finish_encode(self._dispatch_encode(images))
+            return finish(dispatch(images))
 
     def decompress_batch(self, blobs: list) -> np.ndarray:
-        """Decompresses same-size host-coded .tfci blobs as one batch."""
+        """Decompresses same-size .tfci blobs as one batch (either coder's
+        format, detected from the blobs)."""
         with self._on_device():
-            return self._finish_decode(self._dispatch_decode(blobs))
+            return self._finish_decode_any(self._dispatch_decode_any(blobs))
 
     def decompress(self, data: bytes) -> np.ndarray:
         return self.decompress_batch([data])[0]
-

@@ -1,7 +1,8 @@
 """The port's bmshj2018 codec against the JAX package's: the weight bridge
 and its msgpack reader, the full-width transforms of the committed
-checkpoint, a small codec's round trip on the CPU, and blobs that cross
-between the packages; plus the rule that the port never imports JAX."""
+checkpoint, a small codec's round trip on the CPU with either coder, and
+host- and device-coded blobs that cross between the packages; plus the rule
+that the port never imports JAX."""
 
 import pathlib
 import re
@@ -202,16 +203,96 @@ def test_blobs_cross_decode_both_ways_on_pinned_tables(small_models):
     assert diff.max() <= 1 and np.mean(diff == 0) > 0.99
 
 
-def test_device_coded_blob_raises_not_ported(small_models):
+def _fields(blob):
+    return [k for k, *_ in JaxPackedTensors(blob).describe() if k != "MD"]
+
+
+def test_device_blobs_byte_identical_and_cross_decode_on_pinned_tables(small_models):
+    jax_model, params, model = small_models
+    jax_codec = jax_bmshj2018.Codec(jax_model, params)
+    tables = {"side": jax_codec.side_em.tables, "main": jax_codec.em.tables}
+    codec = bmshj2018.Codec(model, device="cpu", tables=tables)
+    images = _structured_images(2, 64, 128, seed=2)
+
+    ours = codec.compress_batch(images, coder="device")
+    theirs = jax_codec.compress_batch(images, coder="device")
+    assert ours == theirs  # byte-identical 5-field blobs
+    for blob in ours:
+        assert len(_fields(blob)) == 5
+        assert JaxPackedTensors(blob).model == "bmshj2018-hyperprior"
+    by_jax = jax_codec.decompress_batch(ours)
+    by_port = codec.decompress_batch(theirs)
+    # Within each package the device-coded decode is exactly the host-coded
+    # one (same symbols, same synthesis).
+    np.testing.assert_array_equal(
+        by_port, codec.decompress_batch(codec.compress_batch(images)))
+    np.testing.assert_array_equal(
+        by_jax, jax_codec.decompress_batch(jax_codec.compress_batch(images)))
+    diff = np.abs(by_jax.astype(np.int16) - by_port.astype(np.int16))
+    assert diff.max() <= 1 and np.mean(diff == 0) > 0.99
+
+
+def test_device_coded_round_trip_iterators_and_rejections(small_models):
     codec = bmshj2018.Codec(small_models[2], device="cpu")
-    packed = JaxPackedTensors()
-    packed.model = "bmshj2018-hyperprior"
-    packed.pack([b"\x00\x00", b"z", np.array([64, 64], np.int32),
-                 np.array([1, 1], np.int32), np.array([4], np.int32)])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        codec.decompress(packed.string)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        codec.compress_batch(_structured_images(1, 64, 64), coder="device")
+    images = _structured_images(3, 70, 100, seed=5)  # padded to 128x128
+    host = codec.compress_batch(images)
+    dev = codec.compress_batch(images, coder="device")
+    assert all(len(_fields(b)) == 5 for b in dev)
+    assert not any(len(_fields(b)) == 5 for b in host)
+    ref = codec.decompress_batch(host)
+    np.testing.assert_array_equal(codec.decompress_batch(dev), ref)
+    assert codec.compress_batch(images, coder="device") == dev  # deterministic
+    np.testing.assert_array_equal(codec.decompress(dev[1]), ref[1])
+    for b_host, b_dev in zip(host, dev):  # compact: rANS pays only lane states
+        hp, dp = JaxPackedTensors(b_host), JaxPackedTensors(b_dev)
+        K = int(dp.unpack_one(4, np.int32)[0])
+        assert len(dp.unpack_one(0, object)[0]) <= (
+            len(hp.unpack_one(0, object)[0]) * 1.1 + 4 * K + 16)
+
+    piped = list(codec.compress_iter([images[:2], images[2:]], coder="device"))
+    assert piped[0] + piped[1] == dev
+    mixed_batches = [dev[:2], host[2:]]  # the format is detected per batch
+    np.testing.assert_array_equal(
+        np.concatenate(list(codec.decompress_iter(mixed_batches))), ref)
+    assert "enc/fetch_stream" in codec.timer.report()
+
+    with pytest.raises(ValueError, match="cannot mix"):
+        codec.decompress_batch([host[0], dev[1]])
+    with pytest.raises(ValueError, match="cannot mix"):
+        codec.decompress_batch([dev[0], host[1]])
+    other = codec.compress_batch(_structured_images(1, 64, 64), coder="device")
+    with pytest.raises(ValueError, match="same-size"):
+        codec.decompress_batch([dev[0], other[0]])
+    with pytest.raises(ValueError, match="unknown coder"):
+        codec.compress_batch(images, coder="gpu")
+
+
+def test_device_coder_falls_back_to_the_host_coder_on_overflow(small_models):
+    from compression_tpu_torch.codec import rans
+    from compression_tpu_torch.models import device_coding
+
+    codec = bmshj2018.Codec(small_models[2], device="cpu")
+    images = _structured_images(2, 64, 64, seed=6)
+    N = 4 * 4 * SMALL["num_latents"]
+    enc, dec, K, _cap = device_coding.rans_for(codec, N)
+    codec._rans_cache[(N, K)] = (rans.make_rans_encoder(codec.em.tables, K, 8),
+                                 dec, K, 8)
+    blobs = codec.compress_batch(images, coder="device")
+    assert blobs == codec.compress_batch(images)  # host-coded, 4 fields
+
+
+def test_corrupt_device_stream_raises(small_models):
+    codec = bmshj2018.Codec(small_models[2], device="cpu")
+    blob = codec.compress(_structured_images(1, 64, 64, seed=7)[0], coder="device")
+    packed = JaxPackedTensors(blob)
+    fields = packed.unpack([object, object, np.int32, np.int32, np.int32])
+    words = bytearray(bytes(fields[0][0]))
+    words[len(words) // 2] ^= 0xFF
+    bad = JaxPackedTensors()
+    bad.model = packed.model
+    bad.pack([bytes(words), bytes(fields[1][0])] + [np.asarray(f) for f in fields[2:]])
+    with pytest.raises(ValueError, match="rANS"):
+        codec.decompress(bad.string)
 
 
 def test_cuda_is_the_default_and_missing_cuda_raises(small_models):

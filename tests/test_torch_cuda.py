@@ -1,6 +1,6 @@
-"""Tests of the port that need the card: the CUDA kernel K1 against its plain
-twin, and the codec on the card against the CPU path. They skip without a
-GPU. This file imports neither JAX nor the JAX package, so on a machine
+"""Tests of the port that need the card: the CUDA kernels (K1 fused GDN, K3/K2
+rANS encode/decode) against their plain twins, and the codec on the card,
+with either coder, against the CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
 without JAX run it alone, without the suite's conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -10,8 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from compression_tpu_torch.codec import pmf_to_quantized_cdf, rans, rans_ref
+from compression_tpu_torch.entropy_models.continuous_base import CdfTables
 from compression_tpu_torch.layers import fused_gdn, fused_gdn_reference
 from compression_tpu_torch.models import bmshj2018
+from compression_tpu_torch.models.device_coding import rans_for
+from compression_tpu_torch.util import PackedTensors
+from compression_tpu_torch.util.image import pad_to_multiple_np
 
 TOL = dict(rtol=2e-5, atol=2e-5)  # the TPU kernel's tolerance
 
@@ -97,3 +102,150 @@ def test_codec_on_card_round_trip_matches_cpu(cuda):
     # The CPU codec's own round trip lands within one level.
     cpu_out = cpu.decompress_batch(cpu.compress_batch(images))
     assert np.abs(cpu_out.astype(np.int16) - out.astype(np.int16)).max() <= 1
+
+
+# -- K3 / K2: the rANS kernels -------------------------------------------------
+
+
+def _rans_tables(rng, R=6, P=12, max_syms=40):
+    """Random quantized CDF rows (escape last); row 0 is the degenerate
+    full-mass row (one symbol owns all 2^P slots)."""
+    rows, lengths = [], []
+    for _ in range(R):
+        n = rng.randint(2, max_syms)
+        rows.append(pmf_to_quantized_cdf(rng.rand(n) ** 2 + 1e-3, [n], P)[0])
+        lengths.append(n + 1)
+    rows[0], lengths[0] = np.array([0, 1 << P, 1 << P]), 3
+    cdf = np.zeros((R, max(len(c) for c in rows)), np.int32)
+    for r, c in enumerate(rows):
+        cdf[r, : len(c)] = c
+    return CdfTables(cdf=cdf, cdf_length=np.array(lengths, np.int32),
+                     cdf_offset=rng.randint(-20, 20, R).astype(np.int32),
+                     offset=np.zeros(R), precision=P)
+
+
+def _rans_elements(rng, tables, B, N, escape_frac=0.25):
+    """int32 values (25% escapes; row 0 only its one symbol) and uint8
+    rows. Image B-1 of a batch starts with two escapes at the int32 limits,
+    where the payload arithmetic wraps (the NumPy spec, in int64, does not;
+    the spec is compared on image 0 only)."""
+    rows = rng.randint(0, tables.num_cdfs, (B, N))
+    lo = tables.cdf_offset[rows].astype(np.int64)
+    n_sym = np.maximum(tables.cdf_length[rows] - 2, 1)
+    wide = rng.randint(-5000, 5000, (B, N)).astype(np.int64)
+    vals = np.where(rng.rand(B, N) < 1 - escape_frac,
+                    lo + (rng.rand(B, N) * n_sym).astype(np.int64), wide)
+    vals = np.where(rows == 0, lo, vals)
+    if B > 1 and N > 1:
+        rows[-1, :2] = tables.num_cdfs - 1
+        vals[-1, :2] = [np.iinfo(np.int32).min, np.iinfo(np.int32).max]
+    return torch.from_numpy(vals.astype(np.int32)), torch.from_numpy(rows.astype(np.uint8))
+
+
+@pytest.mark.parametrize("K", [4, 16, 128])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("N", [1, 1000, 4099])
+def test_rans_kernels_match_twins_and_spec(cuda, K, B, N):
+    rng = np.random.RandomState(K + B + N)
+    tables = _rans_tables(rng)
+    t = rans.RansTables(tables)
+    vals, rows = _rans_elements(rng, tables, B, N)
+    cap = 3 * N + 2 * K + 64
+    before = (rans.rans_encode.launches, rans.rans_decode.launches)
+    got = rans.rans_encode(t, vals.to(cuda), rows.to(cuda), K, cap)
+    torch.cuda.synchronize()
+    assert rans.rans_encode.launches == before[0] + 1
+    want = rans.rans_encode_reference(t, vals, rows, K, cap)
+    for g, w in zip(got, want):  # words, lengths, overflow: identical
+        assert torch.equal(g.cpu(), w)
+    stream, lengths = got[0].cpu().numpy(), got[1].cpu().numpy()
+    assert stream[0, : lengths[0]].tobytes() == rans_ref.rans_encode(
+        vals[0].numpy(), rows[0].numpy(), tables, K)
+    for r in (rows, rows.int()):
+        out, ok = rans.rans_decode(t, got[0], r.to(cuda), K, N)
+        torch.cuda.synchronize()
+        assert ok.all() and torch.equal(out.cpu(), vals)
+    assert rans.rans_decode.launches == before[1] + 2
+
+
+def test_rans_overflow_and_corrupt_streams_match_twins(cuda):
+    rng = np.random.RandomState(1)
+    tables = _rans_tables(rng)
+    t = rans.RansTables(tables)
+    N, K = 3000, 16
+    vals, rows = _rans_elements(rng, tables, 8, N)
+    for cap in (1, 2 * K, 1500):  # too small: the kept tail, lengths, flags
+        got = rans.rans_encode(t, vals.to(cuda), rows.to(cuda), K, cap)
+        want = rans.rans_encode_reference(t, vals, rows, K, cap)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        assert got[2].all()
+    stream, lengths, _ = rans.rans_encode_reference(t, vals, rows, K, 3 * N + 2 * K + 64)
+    bad = stream.clone()
+    for b in range(8):  # a different corruption per image
+        pos = [0, 2 * K - 1, 2 * K + 5, int(lengths[b]) // 2, int(lengths[b]) - 1, 7][b % 6]
+        bad[b, pos] ^= 0x5A5A
+    for s in (bad, stream[:, : int(lengths.min()) // 2].contiguous()):
+        out, ok = rans.rans_decode(t, s.to(cuda), rows.to(cuda), K, N)
+        want_out, want_ok = rans.rans_decode_reference(t, s, rows, K, N)
+        assert torch.equal(ok.cpu(), want_ok) and torch.equal(out.cpu(), want_out)
+        assert not want_ok.all()
+
+
+def test_rans_kernels_reject_what_they_cannot_take(cuda):
+    tables = _rans_tables(np.random.RandomState(2))
+    t = rans.RansTables(tables)
+    vals, rows = _rans_elements(np.random.RandomState(3), tables, 2, 100)
+    vals, rows = vals.to(cuda), rows.to(cuda)
+    with pytest.raises(TypeError, match="int32"):
+        rans.rans_encode(t, vals.long(), rows, 8, 400)
+    with pytest.raises(TypeError, match="uint8 or int32"):
+        rans.rans_encode(t, vals, rows.long(), 8, 400)
+    with pytest.raises(ValueError, match="lanes unsupported"):
+        rans.rans_encode(t, vals, rows, 2048, 400)
+    stream = torch.zeros(2, 10, dtype=torch.uint16, device=cuda)
+    with pytest.raises(ValueError, match="cannot hold"):
+        rans.rans_decode(t, stream, rows, 8, 100)
+    with pytest.raises(TypeError, match="uint16"):
+        rans.rans_decode(t, stream.int(), rows, 2, 100)
+
+
+def test_codec_device_coder_on_card(cuda):
+    torch.manual_seed(1)
+    cfg = bmshj2018.Config(num_filters=32, num_latents=32, num_hyperlatents=32)
+    cpu_model = bmshj2018.BMSHJ2018Model(cfg)
+    gpu_model = bmshj2018.BMSHJ2018Model(cfg)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    cpu = bmshj2018.Codec(cpu_model, device="cpu")
+    gpu = bmshj2018.Codec(gpu_model, device=cuda,
+                          tables={"side": cpu.side_em.tables, "main": cpu.em.tables})
+    rng = np.random.RandomState(1)
+    images = (rng.rand(3, 96, 130, 3) * 255).astype(np.uint8)
+    before = (rans.rans_encode.launches, rans.rans_decode.launches, fused_gdn.launches)
+    blobs = gpu.compress_batch(images, coder="device")
+    out = gpu.decompress_batch(blobs)
+    assert (rans.rans_encode.launches, rans.rans_decode.launches,
+            fused_gdn.launches) == (before[0] + 1, before[1] + 1, before[2] + 6)
+    fields = [PackedTensors(b).unpack([object, object, np.int32, np.int32, np.int32])
+              for b in blobs]
+    assert {int(f[4][0]) for f in fields} == {128}
+    # Bit-equal to the host-coded decode on the card, deterministic,
+    # batch-1 equal to the batch decode, and through the iterators.
+    np.testing.assert_array_equal(out, gpu.decompress_batch(gpu.compress_batch(images)))
+    assert gpu.compress_batch(images, coder="device") == blobs
+    np.testing.assert_array_equal(gpu.decompress(blobs[2]), out[2])
+    piped = list(gpu.compress_iter([images[:1], images[1:]], coder="device"))
+    assert piped[0] + piped[1] == blobs
+    np.testing.assert_array_equal(np.concatenate(list(gpu.decompress_iter(piped))), out)
+    # The card's y words are what the CPU codec's coder (the twin) writes
+    # for the card's symbols and rows, with the same (pinned) tables.
+    x = torch.from_numpy(pad_to_multiple_np(images, cfg.downscale)[0])
+    with torch.inference_mode():
+        y_sym, _, z_hat = gpu._front(x.to(cuda))
+        rows = gpu._rows(z_hat)
+    n = len(images)
+    enc, _dec, K, cap = rans_for(cpu, y_sym[0].numel())
+    stream, lengths, overflow = enc(y_sym.reshape(n, -1).cpu(), rows.reshape(n, -1).cpu())
+    assert K == 128 and not overflow.any()
+    for b in range(n):
+        assert bytes(fields[b][0][0]) == stream[b, : int(lengths[b])].numpy().tobytes()

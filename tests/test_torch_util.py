@@ -54,8 +54,9 @@ def test_parse_host_blobs_matches_jax():
     np.testing.assert_array_equal(got[3], want[3])
     with pytest.raises(ValueError, match="same-size"):
         parse_host_blobs([_blob((64, 64)), _blob((64, 128))])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        parse_host_blobs([_blob((64, 64), fields=5)])
+    for parse in (parse_host_blobs, jax_parse):  # a device-coded blob
+        with pytest.raises(ValueError, match="cannot mix"):
+            parse([_blob((64, 64)), _blob((64, 64), fields=5)])
 
 
 def test_pipeline_keeps_order_and_overlaps():
