@@ -10,9 +10,10 @@ of a checkout. Phases, each fatal on failure:
    math pinned (no TF32, deterministic cuDNN);
 2. build: the CUDA kernels gdn.cu and rans.cu (nvcc, one process each)
    and the range coder (g++), all in parallel;
-3. kernels: K1 (fused GDN) against its plain twin at the six shapes the
-   main path gives it (batch 8 of 768x512: 384x256, 192x128 and 96x64
-   rows of C=192, forward and inverse), tolerance 2e-5; K3 (rANS encode)
+3. kernels: K1 (fused GDN, 3xTF32 on the tensor cores) against its plain
+   twin at the six shapes the main path gives it (batch 8 of 768x512:
+   384x256, 192x128 and 96x64 rows of C=192, forward and inverse) and on
+   x spread over 1e-3..1e3 at 384x256, tolerance 2e-5; K3 (rANS encode)
    and K2 (rANS decode) against their twins on the real symbols and rows
    of the 8 images (B=8, N=294,912, K=128, cap=885,056), on a synthetic
    case (random tables with a full-mass row, 25% escapes, ragged N) and on
@@ -44,6 +45,7 @@ import argparse
 import concurrent.futures as cf
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -54,10 +56,12 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-# H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, HBM3 rate, and
-# int32 on the CUDA cores: 132 SMs x 64 INT32 lanes x 1.98 GHz (the boost
-# clock that gives the 67 TFLOP/s fp32 figure: 132 x 128 x 2 x 1.98 GHz).
+# H100 SXM data-sheet peaks (dense): fp32 on the CUDA cores, TF32 on the
+# tensor cores, HBM3 rate, and int32 on the CUDA cores: 132 SMs x 64 INT32
+# lanes x 1.98 GHz (the boost clock that gives the 67 TFLOP/s fp32 figure:
+# 132 x 128 x 2 x 1.98 GHz).
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_INT32_OPS = 132 * 64 * 1.98e9
 BATCH, HEIGHT, WIDTH = 8, 512, 768
@@ -143,10 +147,33 @@ def phase_build() -> None:
         log("build: " + ", ".join(f"nvcc {src} {fut.result():.1f} s"
                                   for src, fut in nvcc.items())
             + f", g++ tpc_codec.cc {gxx.result():.1f} s")
+    from compression_tpu_torch.layers import gdn_kernel
+
     for src in nvcc:
-        for line in cuda_build.build_logs.get(src, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+        for line in ptxas_summary(cuda_build.build_logs.get(src, "")):
+            log(f"  ptxas {src} {line}")
+    log(f"  gdn.cu at C=192: {gdn_kernel._smem_bytes(192)} bytes of dynamic shared "
+        "memory a CTA (gamma slice hi+lo, two x stages)")
+
+
+def ptxas_summary(build_log: str) -> list:
+    """One line a kernel from nvcc's ``-Xptxas -v`` report: the kernel (name
+    and template arguments, from its mangled name), registers, spills."""
+    lines, name, spills = [], None, ""
+    for line in build_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = re.search(r"\d([a-z][a-z_]*_kernel)I", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            name = (base.group(1) if base else mangled) + (f"<{','.join(args)}>" if args else "")
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and name:
+            used = line.split(":", 1)[-1].strip()
+            lines.append(f"{name}: {used}; {spills}")
+            name = None
+    return lines
 
 
 def gdn_shapes():
@@ -163,6 +190,18 @@ def gdn_shapes():
     return shapes
 
 
+def gdn_bounds_ms(rows: int, c: int) -> dict:
+    """Least times of one K1 call: each input read once and each output
+    written once over the HBM rate; the three TF32 products of 3xTF32 over
+    the tensor cores' TF32 rate; and the fp32 CUDA-core bound of a kernel
+    that does the product in fp32."""
+    nbytes = 2 * rows * c * 4 + (c * c + c) * 4
+    flops = 2 * rows * c * c
+    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES,
+            "tf32": 1e3 * 3 * flops / PEAK_TF32_FLOPS,
+            "fp32": 1e3 * (flops + 3 * rows * c) / PEAK_FP32_FLOPS}
+
+
 def phase_kernels(model, reps: int) -> dict:
     from compression_tpu_torch.layers import parameters
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_reference
@@ -174,7 +213,8 @@ def phase_kernels(model, reps: int) -> dict:
         return x * (norm.sqrt_() if inverse else norm.rsqrt_())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                  bytes_ms=0.0, tf32_ms=0.0, fp32_ms=0.0, flops=0.0)
     max_err = 0.0
     for label, rows, inverse, (tname, lname) in gdn_shapes():
         layer = getattr(getattr(model, tname), lname)
@@ -196,22 +236,66 @@ def phase_kernels(model, reps: int) -> dict:
                             ("plain_ms", fused_gdn_reference)):
                 runs[key].append(cuda_ms(lambda: fn(x, beta, gamma, inverse), reps))
         times = {k: sum(v) / len(v) for k, v in runs.items()}
-        nbytes = 2 * rows * c * 4 + (c * c + c) * 4
-        flops = 2 * rows * c * c + 3 * rows * c
-        bound = 1e3 * max(nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS)
+        bounds = gdn_bounds_ms(rows, c)
+        bound = max(bounds["bytes"], bounds["tf32"])
+        flops = 2 * rows * c * c
         max_err = max(max_err, err)
         for k in ("ms", "plain_ms", "library_ms"):
             totals[k] += times[k]
         totals["bound_ms"] += bound
+        totals["bytes_ms"] += bounds["bytes"]
+        totals["tf32_ms"] += bounds["tf32"]
+        totals["fp32_ms"] += bounds["fp32"]
+        totals["flops"] += flops
         log(f"  {label:18s} rows {rows:7d}  max_abs_err {err:.3e}  kernel "
             f"{times['ms']:.4f} ms  twin {times['plain_ms']:.4f} ms  matmul "
-            f"{times['library_ms']:.4f} ms  bound {bound:.4f} ms (ops)  "
-            f"{flops / times['ms'] / 1e9:.1f} TFLOP/s")
+            f"{times['library_ms']:.4f} ms  bound {bounds['bytes']:.4f} ms (bytes), "
+            f"{bounds['tf32']:.4f} (3xTF32 ops), {bounds['fp32']:.4f} (fp32 ops); "
+            f"{100 * bound / times['ms']:.1f}% of bound, tensor cores "
+            f"{100 * 3 * flops / (times['ms'] * 1e-3) / PEAK_TF32_FLOPS:.1f}%")
         del x, got, want
+    wide_err = check_gdn_wide_range(model)
     log(f"kernels: K1 over the 6 main-path calls: kernel {totals['ms']:.4f} ms, "
-        f"twin {totals['plain_ms']:.4f} ms, matmul {totals['library_ms']:.4f} ms, "
-        f"bound {totals['bound_ms']:.4f} ms; max_abs_err {max_err:.3e}")
-    return dict(max_abs_err=max_err, **totals)
+        f"twin {totals['plain_ms']:.4f} ms, matmul {totals['library_ms']:.4f} ms; "
+        f"bound {totals['bound_ms']:.4f} ms (bytes {totals['bytes_ms']:.4f} ms, 3xTF32 ops "
+        f"{totals['tf32_ms']:.4f} ms, "
+        f"fp32 CUDA-core ops {totals['fp32_ms']:.4f} ms), {100 * totals['bound_ms'] / totals['ms']:.1f}% "
+        f"of bound; tensor cores {100 * 3 * totals['flops'] / (totals['ms'] * 1e-3) / PEAK_TF32_FLOPS:.1f}% "
+        f"busy (3 TF32 products over the TF32 peak); max_abs_err {max_err:.3e} "
+        f"(wide-range input {wide_err:.3e})")
+    bound_by = "bytes" if totals["bytes_ms"] >= totals["tf32_ms"] else "operations"
+    return dict(max_abs_err=max_err, bound_by=bound_by, **{
+        k: totals[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+
+
+def check_gdn_wide_range(model) -> float:
+    """K1 against its twin, both directions, at 384x256 of the batch with x
+    of magnitude spread log-uniformly over 1e-3..1e3, random signs, on the
+    checkpoint's first GDN and last IGDN."""
+    from compression_tpu_torch.layers import parameters
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = BATCH * (HEIGHT // 2) * (WIDTH // 2)
+    sign = torch.randint(0, 2, (rows, 192), device="cuda", generator=gen) * 2.0 - 1.0
+    x = sign * 10.0 ** (torch.rand(rows, 192, device="cuda", generator=gen) * 6 - 3)
+    worst = 0.0
+    for layer, inverse in ((model.analysis.gdn0, False), (model.synthesis.igdn2, True)):
+        with torch.no_grad():
+            beta = parameters.nonneg_apply(layer.beta, layer.beta_min).cuda()
+            gamma = parameters.nonneg_apply(layer.gamma, 0.0).cuda()
+        with torch.inference_mode():
+            got = fused_gdn(x, beta, gamma, inverse)
+            want = fused_gdn_reference(x, beta, gamma, inverse)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rel = ((got - want).abs() / want.abs()).max().item()
+            torch.testing.assert_close(got, want, rtol=GDN_TOL, atol=GDN_TOL)
+        worst = max(worst, err)
+        log(f"  wide-range x (1e-3..1e3), rows {rows}, "
+            f"{'inverse' if inverse else 'forward'}: max_abs_err {err:.3e}, "
+            f"max_rel_err {rel:.3e} (|y| up to {want.abs().max().item():.3e})")
+    return worst
 
 
 def rans_bound_ms(values, rows, word_count, tables, decode: bool) -> tuple:
@@ -585,7 +669,7 @@ def main() -> int:
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
-        "bound_by": "operations",
+        "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
     }]
     for name, replaces in (("rans_encode", "compression_tpu/codec/rans.py:178"),

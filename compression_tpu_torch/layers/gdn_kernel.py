@@ -12,8 +12,9 @@ gamma)``, or ``x * sqrt(...)`` for IGDN, with fp32 accumulation.
   ``csrc/build/`` (listed in .gitignore), as a shared library with a plain
   C interface loaded with ctypes (:mod:`compression_tpu_torch.util.cuda_build`).
 
-Bound on an H100: fp32 CUDA-core operations, not memory (C*C FMAs against
-8*C bytes a row; see the note at the top of ``csrc/gdn.cu``).
+The kernel runs the product on the tensor cores in 3xTF32 (``wgmma``, x tiles
+by TMA); on an H100 it is bound by bytes (see the note at the top of
+``csrc/gdn.cu``).
 """
 
 from __future__ import annotations
@@ -34,18 +35,27 @@ __all__ = [
 ]
 
 _SOURCE = "gdn.cu"
-# Must agree with csrc/gdn.cu: 64-row tiles; gamma + one tile in the
-# 232,448 bytes of shared memory a block may use.
+# Must agree with csrc/gdn.cu: a CTA holds gamma's hi and lo parts for a slice
+# of 64 output channels (32 where 64 does not divide C) and one 64-row x
+# stage for each of its two warpgroups, in the 232,448 bytes of shared memory
+# a block may use; the kernel is instantiated for C up to 192.
 _TILE_ROWS = 64
+_STAGES = 2
 _MAX_SMEM = 232448
+_MAX_C = 192
 
 _count_lock = threading.Lock()
 
 
+def _smem_bytes(c: int) -> int:
+    slice_width = 64 if c % 64 == 0 else 32
+    return 1024 + 4 * (2 * slice_width * c + _STAGES * _TILE_ROWS * c) + 8 * _STAGES
+
+
 def supported_channels(c: int) -> bool:
-    """Channel counts the kernel takes: multiples of 32 whose gamma and one
-    64-row tile fit in shared memory (32..192)."""
-    return c % 32 == 0 and 0 < c and 4 * (c * c + _TILE_ROWS * c) <= _MAX_SMEM
+    """Channel counts the kernel takes: multiples of 32 from 32 to 192, whose
+    gamma slice and x stages fit in shared memory."""
+    return c % 32 == 0 and 0 < c <= _MAX_C and _smem_bytes(c) <= _MAX_SMEM
 
 
 def fused_gdn_reference(x, beta, gamma, inverse: bool = False):
@@ -92,8 +102,7 @@ def _check_inputs(x, beta, gamma) -> int:
         )
     if not supported_channels(c):
         raise ValueError(
-            f"fused_gdn: C = {c} unsupported (a multiple of 32 whose gamma "
-            "fits in shared memory: 32..192)"
+            f"fused_gdn: C = {c} unsupported (a multiple of 32 from 32 to 192)"
         )
     return c
 

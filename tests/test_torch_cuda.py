@@ -6,19 +6,23 @@ without JAX run it alone, without the suite's conftest:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
+from compression_tpu_torch import convert
 from compression_tpu_torch.codec import pmf_to_quantized_cdf, rans, rans_ref
 from compression_tpu_torch.entropy_models.continuous_base import CdfTables
-from compression_tpu_torch.layers import fused_gdn, fused_gdn_reference
+from compression_tpu_torch.layers import fused_gdn, fused_gdn_reference, parameters
 from compression_tpu_torch.models import bmshj2018
 from compression_tpu_torch.models.device_coding import rans_for
 from compression_tpu_torch.util import PackedTensors
 from compression_tpu_torch.util.image import pad_to_multiple_np
 
 TOL = dict(rtol=2e-5, atol=2e-5)  # the TPU kernel's tolerance
+CKPT = pathlib.Path(__file__).resolve().parent.parent / "ckpt" / "bmshj2018.msgpack"
 
 pytestmark = pytest.mark.cuda
 
@@ -33,9 +37,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(seed, rows, c, device):
+def _inputs(seed, rows, c, device, wide=False):
+    """x normal, or (wide) of magnitude spread log-uniformly over 1e-3..1e3
+    with random signs; beta and gamma positive, gamma diagonal-heavy."""
     gen = torch.Generator().manual_seed(seed)
     x = torch.randn(rows, c, generator=gen)
+    if wide:
+        x = torch.sign(x) * 10.0 ** (torch.rand(rows, c, generator=gen) * 6 - 3)
     beta = torch.rand(c, generator=gen) * 1.5 + 0.5
     gamma = torch.rand(c, c, generator=gen) * 0.1 + 0.05 * torch.eye(c)
     return [t.to(device) for t in (x, beta, gamma)]
@@ -53,6 +61,44 @@ def test_kernel_matches_twin(cuda, c, rows, inverse):
         want = fused_gdn_reference(x, beta, gamma, inverse)
     assert fused_gdn.launches == before + 1
     torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_kernel_matches_twin_on_wide_range_input(cuda, inverse):
+    x, beta, gamma = _inputs(9, 256 * 384, 192, cuda, wide=True)
+    with torch.inference_mode():
+        got = fused_gdn(x, beta, gamma, inverse)
+        want = fused_gdn_reference(x, beta, gamma, inverse)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("layer", ["analysis/gdn0", "analysis/gdn1", "analysis/gdn2",
+                                   "synthesis/igdn0", "synthesis/igdn1", "synthesis/igdn2"])
+@pytest.mark.parametrize("wide", [False, True])
+def test_kernel_matches_twin_on_checkpoint_params(cuda, layer, wide):
+    transform, name = layer.split("/")
+    raw = convert.load_flax_msgpack(CKPT)["params"]["params"][transform][name]
+    beta = parameters.nonneg_apply(torch.from_numpy(np.asarray(raw["beta"])), 1e-6)
+    gamma = parameters.nonneg_apply(torch.from_numpy(np.asarray(raw["gamma"])), 0.0)
+    x = _inputs(len(layer), 4551, 192, "cpu", wide=wide)[0]
+    x, beta, gamma = x.to(cuda), beta.to(cuda), gamma.to(cuda)
+    inverse = name.startswith("i")
+    with torch.inference_mode():
+        got = fused_gdn(x, beta, gamma, inverse)
+        want = fused_gdn_reference(x, beta, gamma, inverse)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_kernel_rows_do_not_depend_on_their_tile(cuda, inverse):
+    """A row's result is the same, bit for bit, whichever tile and place in a
+    tile it lands on (batch-1 and batch-8 decodes rely on it)."""
+    x, beta, gamma = _inputs(4, 200_000, 192, cuda)
+    with torch.inference_mode():
+        full = fused_gdn(x, beta, gamma, inverse)
+        for lo, hi in ((0, 64), (64 * 777, 64 * 778), (1000, 1100), (199_937, 200_000)):
+            alone = fused_gdn(x[lo:hi].contiguous(), beta, gamma, inverse)
+            assert torch.equal(alone, full[lo:hi]), (lo, hi)
 
 
 def test_kernel_takes_leading_dims(cuda):

@@ -1,7 +1,9 @@
 """The port's fused GDN (K1's plain twin and the GDN module) against the JAX
 package: the Pallas kernel in interpret mode, the lax GDN path and the flax
 module. The CUDA kernel itself runs only on the card
-(tests/test_torch_cuda.py)."""
+(tests/test_torch_cuda.py); its 3xTF32 arithmetic is emulated here."""
+
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,12 +12,14 @@ import torch
 
 from compression_tpu.layers import GDN as JaxGDN
 from compression_tpu.layers.pallas.gdn_kernel import fused_gdn as jax_fused_gdn
+from compression_tpu_torch import convert
 from compression_tpu_torch.layers import GDN, fused_gdn, fused_gdn_reference
 from compression_tpu_torch.layers import gdn_kernel, parameters
 
 torch.set_num_threads(1)
 
 TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_pallas_gdn.py's tolerance
+CKPT = pathlib.Path(__file__).resolve().parent.parent / "ckpt" / "bmshj2018.msgpack"
 
 
 def _inputs(seed, shape, c):
@@ -103,3 +107,67 @@ def test_plain_exponents_take_torch_ops():
         gamma = parameters.nonneg_apply(mod.gamma, 0.0)
         want = x / (torch.abs(x) @ gamma + beta)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# -- K1's arithmetic on the card: 3xTF32 ------------------------------------
+
+
+def _tf32(a):
+    """cvt.rna.tf32.f32: round to the nearest TF32 value (10 fraction bits),
+    ties away from zero, by masking the low 13 bits."""
+    return ((a.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_gdn(x, beta, gamma, inverse, products):
+    """(x*x) @ gamma as the tensor cores take it: 3 products (hi and lo
+    parts, lo*hi + hi*lo summed first, then hi*hi) or 1 (hi*hi), each
+    product exact and every sum in fp32."""
+    sq = x * x
+    a_hi, b_hi = _tf32(sq), _tf32(gamma)
+    norm = a_hi @ b_hi
+    if products == 3:
+        a_lo, b_lo = _tf32(sq - a_hi), _tf32(gamma - b_hi)
+        norm = (a_lo @ b_hi + a_hi @ b_lo) + norm
+    norm = norm + beta
+    return x * (torch.sqrt(norm) if inverse else torch.rsqrt(norm))
+
+
+@pytest.fixture(scope="module")
+def ckpt_gdn_params():
+    return convert.load_flax_msgpack(CKPT)["params"]["params"]
+
+
+@pytest.mark.parametrize("products", [3, 1])
+@pytest.mark.parametrize("layer", ["analysis/gdn0", "analysis/gdn1", "analysis/gdn2",
+                                   "synthesis/igdn0", "synthesis/igdn1", "synthesis/igdn2"])
+def test_tf32_split_against_pallas_on_checkpoint(ckpt_gdn_params, layer, products):
+    """With the checkpoint's effective beta and gamma (C = 192) and x spread
+    over 1e-3..1e3, 3xTF32 stays within the kernel tolerance of the Pallas
+    kernel; 1xTF32 (11 bits) misses it, which is why K1 splits."""
+    transform, name = layer.split("/")
+    raw = ckpt_gdn_params[transform][name]
+    inverse = name.startswith("i")
+    beta = parameters.nonneg_apply(torch.from_numpy(np.asarray(raw["beta"])), 1e-6)
+    gamma = parameters.nonneg_apply(torch.from_numpy(np.asarray(raw["gamma"])), 0.0)
+    rng = np.random.RandomState(sum(map(ord, layer)))
+    x = (rng.choice([-1.0, 1.0], (512, 192))
+         * 10.0 ** rng.uniform(-3, 3, (512, 192))).astype(np.float32)
+    want = np.asarray(jax_fused_gdn(
+        jnp.asarray(x), jnp.asarray(beta.numpy()), jnp.asarray(gamma.numpy()),
+        inverse=inverse, interpret=True))
+    got = _tf32_gdn(torch.from_numpy(x), beta, gamma, inverse, products).numpy()
+    if products == 3:
+        np.testing.assert_allclose(got, want, **TOL)
+    else:
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_tf32_rounding_is_cvt_rna():
+    vals = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, 1.0 + 3 * 2.0 ** -12,
+                         -(1.0 + 2.0 ** -11), 3.0e-30])
+    got = _tf32(vals)
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0, 1.0 + 2.0 ** -10,
+                         -(1.0 + 2.0 ** -10), 3.0e-30])
+    assert torch.equal(got[:5], want[:5])
+    assert (got[5].view(torch.int32) & 0x1FFF) == 0
