@@ -17,8 +17,11 @@ of a checkout. Phases, each fatal on failure:
    and K2 (rANS decode) against their twins on the real symbols and rows
    of the 8 images (B=8, N=294,912, K=128, cap=885,056), on a synthetic
    case (random tables with a full-mass row, 25% escapes, ragged N) and on
-   a corrupt stream, identical (integers: no tolerance); kernel, twin,
-   yardstick and bound times;
+   a corrupt stream, identical (integers: no tolerance); K2's variant
+   (tables in shared memory, "on_chip", on the main path); kernel, twin,
+   yardstick and bound times, and each rANS kernel's serial floor (T
+   steps of its dependent chain as csrc/rans.cu counts it, at the card's
+   clock);
 4. codec (host coder): ckpt/bmshj2018.msgpack through the weight bridge;
    compress_batch then decompress_batch of 8 structured 768x512 images,
    with the launch counts taken over exactly that run (6 for K1), byte-
@@ -26,14 +29,16 @@ of a checkout. Phases, each fatal on failure:
    PSNR and bpp, and a small input checked against the CPU path;
 5. codec (device coder): the same images through compress_batch(coder=
    "device") then decompress_batch, with launches over exactly that run
-   (K3 1, K2 1, K1 6), 5-field blobs with K=128 (no overflow fall-back),
+   (K3 2: fields then lanes; K2 1 in its on-chip variant; K1 6),
+   5-field blobs with K=128 (no overflow fall-back),
    a reconstruction bit-equal to the host coder's, byte-identical
    re-compression, batch-1 decode equal to the batch-8 decode, and each y
    stream within 1.1x the host coder's y string + 4K + 16 bytes;
 6. throughput: compress_iter / decompress_iter with each coder;
 7. profile: device time by kernel, and the device's idle share, over one
    compress + decompress and over the pipelined iterators (torch.profiler),
-   with each coder.
+   with each coder; K3 and K2 inside the device codec next to their
+   standalone times of phase 3.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -72,10 +77,32 @@ GDN_TOL = 2e-5  # tests/test_pallas_gdn.py's tolerance for the TPU kernel
 # counted as one each); the decoder's slot, two gathers, state update and
 # renorm; each escape's two bypass pops and payload decode.
 RANS_ENC_OPS, RANS_DEC_OPS, RANS_ESC_OPS = 28, 19, 9
+# Cycles of one step's dependent chain, as csrc/rans.cu's designs count it
+# (integer ops at 4 cycles, a shared-memory load at 30, a ballot with its
+# popcount at 20, a named barrier at 30). K3's lane pass: the escape
+# substitution (2 ops), the renorm test and shift (3), the divide's
+# quotient and remainder fix-up (6; the divisor's reciprocal is off the
+# chain) and the new state (2): 13 ops. K2: slot and bucket address (2
+# ops), the bucket load, the f|c address (1), the f|c load, the search
+# test (2), the state update (3) and renorm test (1), ballot and popcount,
+# the count's store, the barrier and the counts' load, the prefix (2), the
+# ring address (2), the ring load, the merge (1): 14 ops, four loads, a
+# ballot and a barrier.
+RANS_ENC_CHAIN_CYCLES = 13 * 4
+RANS_DEC_CHAIN_CYCLES = 14 * 4 + 4 * 30 + 20 + 30
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
 
 
 def card_line() -> str:
@@ -164,7 +191,7 @@ def ptxas_summary(build_log: str) -> list:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            base = re.search(r"\d([a-z][a-z_]*_kernel)I", mangled)
+            base = re.search(r"\d([a-z][a-z_]*_kernel)[IE]", mangled)
             args = re.findall(r"L[ib](\d+)E", mangled)
             name = (base.group(1) if base else mangled) + (f"<{','.join(args)}>" if args else "")
         elif "spill" in line:
@@ -308,9 +335,7 @@ def rans_bound_ms(values, rows, word_count, tables, decode: bool) -> tuple:
     r = rows.long()
     s = values.long() - t.cdf_offset.long()[r]
     escapes = int((~((s >= 0) & (s < t.escape.long()[r]))).sum())
-    table_bytes = 4 * (t.fc.numel() + 2 * t.num_rows)
-    if decode:
-        table_bytes += 4 * t.slot2sym.numel()
+    table_bytes = t.table_bytes if decode else 4 * t.bucket_words  # K3: row info, f|c
     nbytes = (4 * B * N + rows.element_size() * B * N + 2 * word_count
               + table_bytes + (B if decode else 5 * B))
     ops = (RANS_DEC_OPS if decode else RANS_ENC_OPS) * B * N + RANS_ESC_OPS * escapes
@@ -394,6 +419,10 @@ def phase_rans_kernels(codec, images, reps: int) -> dict:
     want_n = HEIGHT * WIDTH // 256 * codec.cfg.num_latents  # 294,912 at 768x512
     if (N, K, cap) != (want_n, 128, 3 * want_n + 2 * 128 + 64):
         raise AssertionError(f"unexpected main-path shapes N={N} K={K} cap={cap}")
+    variant = rans.decode_variant(tables)
+    log(f"  K2 variant: {variant} (table blob {tables.table_bytes} bytes in shared memory)")
+    if variant != "on_chip":
+        raise AssertionError("the main path's tables do not fit K2's shared memory")
 
     with torch.inference_mode():
         got = rans.rans_encode(tables, values, rows, K, cap)
@@ -435,6 +464,8 @@ def phase_rans_kernels(codec, images, reps: int) -> dict:
         check_rans_synthetic()
 
         word_count = int(lengths.sum())
+        T = -(-N // K)
+        clock = sm_clock_hz()
         results = {}
         for name, kernel, twin, args in (
             ("rans_encode", rans.rans_encode, rans.rans_encode_reference,
@@ -449,14 +480,41 @@ def phase_rans_kernels(codec, images, reps: int) -> dict:
             times = {k: sum(v) / len(v) for k, v in runs.items()}
             bound, bound_by = rans_bound_ms(values, rows, word_count, tables,
                                             decode=name == "rans_decode")
-            T = -(-N // K)
+            chain = RANS_DEC_CHAIN_CYCLES if name == "rans_decode" else RANS_ENC_CHAIN_CYCLES
+            floor = 1e3 * T * chain / clock
             log(f"  {name}: kernel {times['ms']:.4f} ms  twin {times['plain_ms']:.2f} ms  "
-                f"bound {bound:.4f} ms ({bound_by})  {1e3 * times['ms'] / T:.3f} us "
-                f"per step over T={T} serial steps "
-                f"(kernel runs {[round(v, 4) for v in runs['ms']]})")
+                f"bound {bound:.4f} ms ({bound_by})  serial floor {floor:.4f} ms "
+                f"({T} steps x {chain} cycles at {clock / 1e6:.0f} MHz)  "
+                f"{1e3 * times['ms'] / T:.3f} us per step, {times['ms'] * 1e-3 * clock / T:.0f} "
+                f"cycles (kernel runs {[round(v, 4) for v in runs['ms']]})")
             results[name] = dict(max_abs_err=0.0, bound_ms=bound, bound_by=bound_by,
                                  **times)
+        check_decode_designs(codec, tables, stream, rows, values, K, reps)
     return results
+
+
+def check_decode_designs(codec, tables, stream, rows, values, K, reps) -> None:
+    """K2's lookup designs on the main path's stream, each checked against
+    the symbols: the shipped tables on chip (8-slot buckets), 16-slot
+    buckets on chip, and the shipped tables read through L1 (the variant
+    for tables over the shared-memory budget)."""
+    from compression_tpu_torch.codec import rans
+
+    N = values.shape[1]
+    wide = rans.RansTables(codec.em.tables, bucket_bits=4)
+    times = {}
+    for label, t, on_chip in (("on chip, 8-slot buckets", tables, True),
+                              ("on chip, 16-slot buckets", wide, True),
+                              ("through L1", tables, False)):
+        out, ok = rans._decode_launch(t, stream, rows, K, N, on_chip)
+        torch.cuda.synchronize()
+        if not (bool(ok.all()) and torch.equal(out, values)):
+            raise AssertionError(f"K2 ({label}) does not give back the symbols")
+        times[label] = cuda_ms(
+            lambda t=t, on_chip=on_chip: rans._decode_launch(t, stream, rows, K, N, on_chip),
+            reps)
+    log("  K2 lookup designs on the main path's stream: " + ", ".join(
+        f"{label} {ms:.4f} ms" for label, ms in times.items()))
 
 
 def check_small_against_cpu(model) -> None:
@@ -531,6 +589,7 @@ def phase_codec_device(codec, images, host_blobs, host_out) -> dict:
 
     codec.decompress_batch(codec.compress_batch(images[:1], coder="device"))  # warm-up
     rans.rans_encode.launches = rans.rans_decode.launches = fused_gdn.launches = 0
+    rans.rans_decode.variant_launches.update({"on_chip": 0, "global": 0})
     t0 = time.perf_counter()
     blobs = codec.compress_batch(images, coder="device")
     t1 = time.perf_counter()
@@ -540,8 +599,12 @@ def phase_codec_device(codec, images, host_blobs, host_out) -> dict:
                 "rans_decode": rans.rans_decode.launches, "gdn": fused_gdn.launches}
     log(f"codec (device coder): batch {BATCH} {HEIGHT}x{WIDTH}: compress "
         f"{1e3 * (t1 - t0):.1f} ms, decompress {1e3 * (t2 - t1):.1f} ms; launches {launches}")
-    if launches != {"rans_encode": 1, "rans_decode": 1, "gdn": 6}:
-        raise AssertionError(f"expected K3 1, K2 1, K1 6 launches, saw {launches}")
+    if launches != {"rans_encode": 2, "rans_decode": 1, "gdn": 6}:
+        raise AssertionError(f"expected K3 2 (fields, lanes), K2 1, K1 6 launches, "
+                             f"saw {launches}")
+    variants = dict(rans.rans_decode.variant_launches)
+    if variants != {"on_chip": 1, "global": 0}:
+        raise AssertionError(f"expected K2's on-chip variant once, saw {variants}")
     y_dev, y_host = [], []
     for blob, host in zip(blobs, host_blobs):
         packed = PackedTensors(blob)
@@ -567,10 +630,11 @@ def phase_codec_device(codec, images, host_blobs, host_out) -> dict:
     return launches
 
 
-def phase_profile(label: str, run, top: int = 0) -> None:
+def phase_profile(label: str, run, top: int = 0) -> dict:
     """Device time by kernel over ``run()`` (torch.profiler), grouped, and
     the device's idle share of the wall time (busy = the sum of the kernel
-    and copy durations; one stream, so they barely overlap)."""
+    and copy durations; one stream, so they barely overlap). Returns
+    {kernel name: (ms, calls)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -587,7 +651,7 @@ def phase_profile(label: str, run, top: int = 0) -> None:
             per_kernel[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3, calls + 1)
     if not per_kernel:
         log(f"profile ({label}): the profiler saw no device activity; not measured")
-        return
+        return per_kernel
     busy = sum(ms for ms, _ in per_kernel.values())
     groups = {"K1 gdn": 0.0, "K3/K2 rans": 0.0, "convolution": 0.0,
               "memcpy": 0.0, "other": 0.0}
@@ -604,6 +668,7 @@ def phase_profile(label: str, run, top: int = 0) -> None:
         + ", ".join(f"{k} {v:.1f} ms" for k, v in groups.items()))
     for name, (ms, calls) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {ms:8.2f} ms {calls:5d}x  {name[:110]}")
+    return per_kernel
 
 
 def phase_throughput(codec, images, batches: int, card: str, coder: str) -> None:
@@ -650,9 +715,20 @@ def main() -> int:
     for coder in ("host", "device"):
         phase_throughput(codec, images, args.batches, card, coder)
     for coder in ("host", "device"):
-        phase_profile(f"{coder} coder, compress_batch + decompress_batch of {BATCH}",
-                      lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)),
-                      top=10)
+        per_kernel = phase_profile(
+            f"{coder} coder, compress_batch + decompress_batch of {BATCH}",
+            lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)),
+            top=10)
+        if coder == "device":
+            # K3 is its fields and lanes kernels (its output's zero fill is
+            # a PyTorch fill kernel, not told apart here).
+            inside = {name: sum(ms for k, (ms, _) in per_kernel.items()
+                                if any(f"{p}_kernel" in k for p in parts))
+                      for name, parts in (("rans_encode", ("rans_fields", "rans_encode")),
+                                          ("rans_decode", ("rans_decode",)))}
+            log("  inside the codec: " + ", ".join(
+                f"{label} {inside[name]:.4f} ms (standalone {rans_k[name]['ms']:.4f} ms)"
+                for label, name in (("K3", "rans_encode"), ("K2", "rans_decode"))))
         batch_list = [images] * args.batches
         phase_profile(f"{coder} coder, compress_iter then decompress_iter, "
                       f"{args.batches} batches",

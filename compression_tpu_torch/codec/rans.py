@@ -24,7 +24,23 @@ each image as lane = j mod K. ``rows`` may be int32 or the uint8 that
   (the JAX package skips them under ``lax.cond``; the result is the same).
 
 Bound on an H100: the serial chain of T = ceil(N / K) dependent steps, not
-bytes or operations (see the note at the top of ``csrc/rans.cu``).
+bytes or operations (see the note at the top of ``csrc/rans.cu``). K3 is
+two launches: the elements' fields over the whole card, then one CTA an
+image whose lanes run independently (no barrier in the lane loop) and
+whose words are placed afterwards by a scan of per-step counts; its floor
+is T times the state update. K2 spreads an image's K lanes over 4 warps
+(16 past 128 lanes) with the tables, the rows and the stream in shared
+memory; its floor is T times a chain of four shared-memory loads, a
+ballot, a named barrier and a state update. K stays 128: it is in the blob
+and the JAX package picks it, so raising it would change the bitstream.
+
+Tables: :class:`RansTables` also builds the kernels' table blob (row info,
+f|c stored ragged with a sentinel per row, and per-row slot buckets).
+:func:`decode_variant` says whether K2 holds it in shared memory
+("on_chip") or reads it through L1 ("global", for tables over the budget);
+``rans_decode.variant_launches`` counts launches of each. K3 reads its
+part (row info and f|c) through L1, in a pass of its own over all
+elements.
 """
 
 from __future__ import annotations
@@ -46,16 +62,42 @@ __all__ = [
     "rans_decode",
     "rans_encode_reference",
     "rans_decode_reference",
+    "decode_variant",
     "build",
 ]
 
 _SOURCE = "rans.cu"
-_MAX_LANES = 1024  # one thread per lane, one CTA per image
+_MAX_LANES = 1024  # the lanes of one image are coded by one CTA
 _L = 1 << 16
 _M16 = 0xFFFF
 _M32 = 0xFFFFFFFF
+# Must agree with csrc/rans.cu: K2's shared memory is 512 bytes of flags,
+# barriers and per-step counts, a ring of 8,192 stream words and four
+# 8,192-byte slots of rows, plus the table blob in the on-chip variant,
+# within the 232,448 bytes a block may use. Buckets hold 2^3 slots: 2^2
+# does not fit the checkpoint's tables on chip, and 2^4 decodes slower
+# (chip_smoke.py phase 3 times both; PERF.md section 6).
+_DEC_FIXED_SMEM = 512 + 2 * 8192 + 4 * 8192
+_MAX_SMEM = 232448
+_BUCKET_BITS = 3
 
 _count_lock = threading.Lock()
+
+
+def _round4(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+def _well_formed(cdf, cdf_length, precision) -> bool:
+    """Rows the kernels' ragged tables represent exactly: each starts at 0,
+    rises to 2^P at its last entry, and has 1 .. 65,535 symbols."""
+    maxlen = cdf.shape[1]
+    for r, n in enumerate(np.asarray(cdf_length, np.int64)):
+        row = cdf[r, :n]
+        if not (2 <= n <= maxlen and n - 1 <= 0xFFFF and row[0] == 0
+                and row[-1] == 1 << precision and np.all(np.diff(row) >= 0)):
+            return False
+    return True
 
 
 class RansTables:
@@ -67,9 +109,25 @@ class RansTables:
     low P bits to the symbol; ``escape[r] = cdf_length[r] - 2`` is the
     escape symbol; ``cdf_offset[r]`` shifts symbols to values. All int32,
     on the CPU; :meth:`on` returns (and caches) a copy on another device.
+
+    ``blob`` (int32, 16-byte padded) is the kernels' form of the same
+    tables, as ``csrc/rans.cu`` reads it:
+
+    * words ``[0, 4R)``: per row ``(fc start, escape, cdf_offset, bucket
+      base)``;
+    * from ``fc_words``: per row its ``cdf_length - 1`` entries of ``fc``,
+      then a sentinel ``1 << P`` (c = 2^P, past every slot);
+    * from ``bucket_words`` (uint16): per row ``2^(P - bucket_bits)``
+      buckets, the symbol that holds slot ``i << bucket_bits``; a symbol is
+      found from its bucket by a forward search while the next entry's c
+      is at most the slot.
+
+    ``table_bytes`` is the whole blob's size. ``blob`` is None where a row
+    is not well formed (see :func:`_well_formed`); the kernels then refuse
+    the tables.
     """
 
-    def __init__(self, tables):
+    def __init__(self, tables, bucket_bits: int = _BUCKET_BITS):
         self.precision = int(tables.precision)
         if self.precision > 15:
             raise ValueError(
@@ -88,8 +146,37 @@ class RansTables:
         self.escape = torch.from_numpy((cdf_length - 2).astype(np.int32))
         self.num_rows = int(cdf.shape[0])
         self.maxlen = int(cdf.shape[1])
+        self.bucket_bits = min(int(bucket_bits), self.precision)
+        self.blob = None
+        if _well_formed(cdf, cdf_length, self.precision):
+            self._build_blob(cdf_length)
         self.device = torch.device("cpu")
         self._copies = {self.device: self}
+
+    def _build_blob(self, cdf_length) -> None:
+        R, P, bb = self.num_rows, self.precision, self.bucket_bits
+        syms = np.asarray(cdf_length, np.int64) - 1  # symbols a row, escape included
+        starts = np.concatenate([[0], np.cumsum(syms + 1)[:-1]])
+        nb = 1 << (P - bb)
+        fc = self.fc.numpy()
+        self.fc_words = 4 * R
+        self.bucket_words = _round4(self.fc_words + int((syms + 1).sum()))
+        words = _round4(self.bucket_words + -(-R * nb // 2))
+        blob = np.zeros(words, np.int32)
+        info = blob[: 4 * R].reshape(R, 4)
+        info[:, 0] = starts
+        info[:, 1] = self.escape.numpy()
+        info[:, 2] = self.cdf_offset.numpy()
+        info[:, 3] = np.arange(R) * nb
+        fcr = blob[self.fc_words: self.bucket_words]
+        for r in range(R):
+            fcr[starts[r]: starts[r] + syms[r]] = fc[r, : syms[r]]
+            fcr[starts[r] + syms[r]] = 1 << P
+        buckets = self.slot2sym.numpy()[:, :: 1 << bb].astype(np.uint16)
+        blob.view(np.uint16)[2 * self.bucket_words: 2 * self.bucket_words + R * nb] = (
+            buckets.reshape(-1))
+        self.blob = torch.from_numpy(blob)
+        self.table_bytes = 4 * words
 
     def on(self, device) -> "RansTables":
         device = torch.device(device)
@@ -99,8 +186,9 @@ class RansTables:
         if copy is None:
             copy = object.__new__(RansTables)
             copy.__dict__.update(self.__dict__)
-            for name in ("fc", "slot2sym", "cdf_offset", "escape"):
-                setattr(copy, name, getattr(self, name).to(device))
+            for name in ("fc", "slot2sym", "cdf_offset", "escape", "blob"):
+                if getattr(self, name) is not None:
+                    setattr(copy, name, getattr(self, name).to(device))
             copy.device = device
             self._copies[device] = copy
         return copy
@@ -108,6 +196,20 @@ class RansTables:
 
 def _tables(tables) -> RansTables:
     return tables if isinstance(tables, RansTables) else RansTables(tables)
+
+
+def _blob_of(tables) -> RansTables:
+    t = _tables(tables)
+    if t.blob is None:
+        raise ValueError("rANS tables: a row is not a well-formed quantized CDF")
+    return t
+
+
+def decode_variant(tables) -> str:
+    """Which variant of K2 decodes with these tables: "on_chip" when the
+    blob fits in shared memory beside the rings, else "global"."""
+    t = _blob_of(tables)
+    return "on_chip" if _DEC_FIXED_SMEM + t.table_bytes <= _MAX_SMEM else "global"
 
 
 # -- plain PyTorch twins ----------------------------------------------------
@@ -132,9 +234,10 @@ def _row_fields(t: RansTables, rows: torch.Tensor):
 
 
 def _freq_cum(t: RansTables, r, m):
+    # fc as u32: at precision 15 a full-mass row's f = 2^15 sets bit 31.
     stride = t.maxlen - 1
     flat = (r * stride + m).clamp(0, t.num_rows * stride - 1)
-    v = t.fc.reshape(-1).long()[flat]
+    v = t.fc.reshape(-1).long()[flat] & _M32
     return v >> 16, v & _M16
 
 
@@ -262,11 +365,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.tpc_rans_encode.restype = i
     lib.tpc_rans_encode.argtypes = [
-        p, p, i, p, p, p, i, i, i, i, ll, i, ll, p, p, p, p, p,
+        p, p, i, p, i, i, i, i, ll, i, ll, p, p, p, p, p, p, i, p,
     ]
     lib.tpc_rans_decode.restype = i
     lib.tpc_rans_decode.argtypes = [
-        p, ll, p, i, p, p, p, p, i, i, i, i, ll, i, p, p, p,
+        p, ll, p, i, p, i, i, i, i, i, i, i, i, ll, i, p, p, p,
     ]
     lib.tpc_rans_error_string.restype = ctypes.c_char_p
     lib.tpc_rans_error_string.argtypes = [i]
@@ -302,9 +405,10 @@ def rans_encode(tables, values: torch.Tensor, rows: torch.Tensor, K: int,
     """Encodes ``values`` i32[B, N] under CDF ``rows`` into K-lane rANS
     streams: ``(stream u16[B, cap], lengths i32[B], overflow bool[B])``.
 
-    CPU tensors run :func:`rans_encode_reference`; CUDA tensors launch K3,
-    or raise if it cannot (unsupported shape or type, build or launch
-    failure)."""
+    CPU tensors run :func:`rans_encode_reference`; CUDA tensors launch K3
+    (two kernels: the elements' fields, then the lanes and the compaction;
+    ``rans_encode.launches`` counts both), or raise if it cannot
+    (unsupported shape, type or tables, build or launch failure)."""
     if values.device.type == "cpu":
         return rans_encode_reference(tables, values, rows, K, cap)
     _on_cuda("rans_encode", values)
@@ -315,26 +419,34 @@ def rans_encode(tables, values: torch.Tensor, rows: torch.Tensor, K: int,
     _check_lanes("rans_encode", K)
     if cap < 1:
         raise ValueError(f"rans_encode: cap = {cap} words")
-    t = _tables(tables).on(values.device)
+    t = _blob_of(tables).on(values.device)
     dev = values.device
-    out = torch.empty((B, cap), dtype=torch.uint16, device=dev)
+    # Zeros past the stream, as the JAX scatter leaves them: filled here over
+    # the whole card; the kernel writes the stream.
+    out = torch.zeros((B, cap), dtype=torch.uint16, device=dev)
     lengths = torch.empty((B,), dtype=torch.int32, device=dev)
     overflow = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
         return out, lengths, overflow
-    scratch = torch.empty((B, 3 * N + 2 * K), dtype=torch.uint16, device=dev)
+    # Scratch: the elements' fields [B][N][2], the lane pass's candidate
+    # words [B][T][3][K] and the warps' ballots (em, esc) [B][T][ceil(K / 32)].
+    T = -(-N // K)
+    fields = torch.empty((B, N, 2), dtype=torch.int32, device=dev)
+    rec = torch.empty((B, T * 3 * K), dtype=torch.uint16, device=dev)
+    flags = torch.empty((B, T * -(-K // 32), 2), dtype=torch.int32, device=dev)
     lib = cuda_build.load(_SOURCE, _declare)
     with torch.cuda.device(dev):
         rc = lib.tpc_rans_encode(
             values.data_ptr(), rows.data_ptr(), int(rows.dtype == torch.uint8),
-            t.fc.data_ptr(), t.cdf_offset.data_ptr(), t.escape.data_ptr(),
-            t.num_rows, t.maxlen - 1, t.precision, B, N, K, cap,
-            scratch.data_ptr(), out.data_ptr(), lengths.data_ptr(),
-            overflow.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            t.blob.data_ptr(), t.fc_words, t.num_rows, t.precision, B, N, K, cap,
+            fields.data_ptr(), rec.data_ptr(), flags.data_ptr(), out.data_ptr(),
+            lengths.data_ptr(), overflow.data_ptr(),
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _check("rans_encode", rc, lib)
     with _count_lock:  # pipeline worker threads launch concurrently
-        rans_encode.launches += 1
+        rans_encode.launches += 2 if N else 1
     return out, lengths, overflow
 
 
@@ -344,8 +456,8 @@ def rans_decode(tables, stream: torch.Tensor, rows: torch.Tensor, K: int,
     ``(values i32[B, N], ok bool[B])``; ``ok`` is False for a stream whose
     final lane states are not 2^16 (corrupt or mis-sized).
 
-    CPU tensors run :func:`rans_decode_reference`; CUDA tensors launch K2,
-    or raise if it cannot."""
+    CPU tensors run :func:`rans_decode_reference`; CUDA tensors launch K2
+    in the variant :func:`decode_variant` picks, or raise if it cannot."""
     if stream.device.type == "cpu":
         return rans_decode_reference(tables, stream, rows, K, N)
     _on_cuda("rans_decode", stream)
@@ -356,7 +468,15 @@ def rans_decode(tables, stream: torch.Tensor, rows: torch.Tensor, K: int,
     _check_lanes("rans_decode", K)
     if cap < 2 * K:
         raise ValueError(f"rans_decode: {cap} words cannot hold the {K} lane states")
-    t = _tables(tables).on(stream.device)
+    t = _tables(tables)
+    return _decode_launch(t, stream, rows, K, N, decode_variant(t) == "on_chip")
+
+
+def _decode_launch(t: RansTables, stream, rows, K, N, on_chip: bool):
+    """Launches K2 in the given variant (``rans_decode`` picks it from the
+    tables' size; ``chip_smoke.py`` also times the other one)."""
+    t = t.on(stream.device)
+    B, cap = stream.shape
     dev = stream.device
     values = torch.empty((B, N), dtype=torch.int32, device=dev)
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
@@ -366,19 +486,21 @@ def rans_decode(tables, stream: torch.Tensor, rows: torch.Tensor, K: int,
     with torch.cuda.device(dev):
         rc = lib.tpc_rans_decode(
             stream.data_ptr(), cap, rows.data_ptr(), int(rows.dtype == torch.uint8),
-            t.fc.data_ptr(), t.slot2sym.data_ptr(), t.cdf_offset.data_ptr(),
-            t.escape.data_ptr(), t.num_rows, t.maxlen - 1, t.precision, B, N, K,
-            values.data_ptr(), ok.data_ptr(),
+            t.blob.data_ptr(), t.table_bytes, t.fc_words, t.bucket_words,
+            t.num_rows, t.precision, t.bucket_bits, int(on_chip),
+            B, N, K, values.data_ptr(), ok.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check("rans_decode", rc, lib)
     with _count_lock:
         rans_decode.launches += 1
+        rans_decode.variant_launches["on_chip" if on_chip else "global"] += 1
     return values, ok
 
 
 rans_encode.launches = 0
 rans_decode.launches = 0
+rans_decode.variant_launches = {"on_chip": 0, "global": 0}
 
 
 def make_rans_encoder(tables, K: int, cap_words: int):

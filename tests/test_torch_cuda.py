@@ -200,7 +200,7 @@ def test_rans_kernels_match_twins_and_spec(cuda, K, B, N):
     before = (rans.rans_encode.launches, rans.rans_decode.launches)
     got = rans.rans_encode(t, vals.to(cuda), rows.to(cuda), K, cap)
     torch.cuda.synchronize()
-    assert rans.rans_encode.launches == before[0] + 1
+    assert rans.rans_encode.launches == before[0] + 2  # the fields, then the lanes
     want = rans.rans_encode_reference(t, vals, rows, K, cap)
     for g, w in zip(got, want):  # words, lengths, overflow: identical
         assert torch.equal(g.cpu(), w)
@@ -238,6 +238,87 @@ def test_rans_overflow_and_corrupt_streams_match_twins(cuda):
         assert not want_ok.all()
 
 
+def _rans_round_trip(t, tables, vals, rows, K, cuda, variant):
+    """K3 then K2 on the card against the twins; the launches counted for
+    the variant."""
+    N = vals.shape[1]
+    cap = 3 * N + 2 * K + 64
+    got = rans.rans_encode(t, vals.to(cuda), rows.to(cuda), K, cap)
+    want = rans.rans_encode_reference(t, vals, rows, K, cap)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    before = dict(rans.rans_decode.variant_launches)
+    out, ok = rans.rans_decode(t, got[0], rows.to(cuda), K, N)
+    torch.cuda.synchronize()
+    assert ok.all() and torch.equal(out.cpu(), vals)
+    assert rans.rans_decode.variant_launches[variant] == before[variant] + 1
+    return want
+
+
+@pytest.mark.parametrize("R,max_syms", [(48, 300), (64, 2000)])
+def test_rans_global_variants_match_twins(cuda, R, max_syms):
+    """Tables over the shared-memory budget (precision 15: 2,048 buckets a
+    row; and 64 rows of up to 2,000 symbols) take K2's variant that reads
+    them through L1."""
+    rng = np.random.RandomState(R)
+    tables = _rans_tables(rng, R=R, P=15, max_syms=max_syms)
+    t = rans.RansTables(tables)
+    assert rans.decode_variant(t) == "global"
+    vals, rows = _rans_elements(rng, tables, 4, 5000)
+    stream, lengths, _ = _rans_round_trip(t, tables, vals, rows, 128, cuda, "global")
+    bad = stream.clone()
+    bad[1, int(lengths[1]) // 3] ^= 0x1234
+    out, ok = rans.rans_decode(t, bad.to(cuda), rows.to(cuda), 128, 5000)
+    want_out, want_ok = rans.rans_decode_reference(t, bad, rows, 128, 5000)
+    assert torch.equal(ok.cpu(), want_ok) and torch.equal(out.cpu(), want_out)
+
+
+@pytest.mark.parametrize("K", [1, 4, 33, 48, 200, 1024])
+@pytest.mark.parametrize("N", [1, 48, 3001])
+def test_rans_kernels_at_odd_lanes_and_one_step(cuda, K, N):
+    """K not a multiple of 32 (and 1024, 32 lanes a thread in K2), T = 1
+    (N <= K) and ragged T."""
+    rng = np.random.RandomState(K * 7 + N)
+    tables = _rans_tables(rng)
+    vals, rows = _rans_elements(rng, tables, 3, N)
+    _rans_round_trip(rans.RansTables(tables), tables, vals, rows, K, cuda, "on_chip")
+
+
+def test_rans_decode_ring_refills_and_reads_past_cap(cuda):
+    """Streams far longer than K2's 8,192-word ring (25% escapes: three
+    words an escaped element), then the same streams corrupt and truncated
+    so the reads run past cap and clip at cap - 1."""
+    rng = np.random.RandomState(8)
+    tables = _rans_tables(rng)
+    t = rans.RansTables(tables)
+    N, K = 60_000, 16
+    vals, rows = _rans_elements(rng, tables, 4, N, escape_frac=0.5)
+    stream, lengths, _ = _rans_round_trip(t, tables, vals, rows, K, cuda, "on_chip")
+    assert int(lengths.min()) > 4 * 8192
+    bad = stream.clone()
+    for b in range(4):
+        bad[b, [2 * K + 3, 9000, 20_000, int(lengths[b]) - 2][b]] ^= 0x00FF
+    for s in (bad, stream[:, : 9000].contiguous(), stream[:, : 2 * K + 1].contiguous()):
+        out, ok = rans.rans_decode(t, s.to(cuda), rows.to(cuda), K, N)
+        want_out, want_ok = rans.rans_decode_reference(t, s, rows, K, N)
+        assert torch.equal(ok.cpu(), want_ok) and torch.equal(out.cpu(), want_out)
+        assert not want_ok.all()
+
+
+def test_rans_main_path_tables_decode_on_chip(cuda):
+    """The codec's y tables (64 rows at precision 12) fit in shared memory:
+    the main path's decode runs the on-chip variant."""
+    from compression_tpu_torch.distributions import NoisyNormal
+    from compression_tpu_torch.entropy_models import LocationScaleIndexedEntropyModel
+
+    tables = LocationScaleIndexedEntropyModel(NoisyNormal, coding_rank=3)._em.build_tables()
+    t = rans.RansTables(tables)
+    assert rans.decode_variant(t) == "on_chip"
+    rng = np.random.RandomState(9)
+    vals, rows = _rans_elements(rng, tables, 2, 40_000, escape_frac=0.02)
+    _rans_round_trip(t, tables, vals, rows, 128, cuda, "on_chip")
+
+
 def test_rans_kernels_reject_what_they_cannot_take(cuda):
     tables = _rans_tables(np.random.RandomState(2))
     t = rans.RansTables(tables)
@@ -254,6 +335,10 @@ def test_rans_kernels_reject_what_they_cannot_take(cuda):
         rans.rans_decode(t, stream, rows, 8, 100)
     with pytest.raises(TypeError, match="uint16"):
         rans.rans_decode(t, stream.int(), rows, 2, 100)
+    bad = _rans_tables(np.random.RandomState(2))
+    bad.cdf[1, int(bad.cdf_length[1]) - 1] -= 1  # the row no longer reaches 2^P
+    with pytest.raises(ValueError, match="well-formed"):
+        rans.rans_encode(rans.RansTables(bad), vals, rows, 8, 400)
 
 
 def test_codec_device_coder_on_card(cuda):
@@ -271,7 +356,7 @@ def test_codec_device_coder_on_card(cuda):
     blobs = gpu.compress_batch(images, coder="device")
     out = gpu.decompress_batch(blobs)
     assert (rans.rans_encode.launches, rans.rans_decode.launches,
-            fused_gdn.launches) == (before[0] + 1, before[1] + 1, before[2] + 6)
+            fused_gdn.launches) == (before[0] + 2, before[1] + 1, before[2] + 6)
     fields = [PackedTensors(b).unpack([object, object, np.int32, np.int32, np.int32])
               for b in blobs]
     assert {int(f[4][0]) for f in fields} == {128}

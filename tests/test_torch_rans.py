@@ -29,16 +29,16 @@ P = 12
 FULL_MASS = [0, 1 << P, 1 << P]  # one symbol owns all 2^P slots; no escape mass
 
 
-def _tables(rng, R=6, max_syms=24, full_mass_row=False):
+def _tables(rng, R=6, max_syms=24, full_mass_row=False, precision=P):
     """Random quantized CDF rows (escape symbol last), as the JAX tests
     build them; optionally row 0 is the degenerate full-mass row."""
     rows, lengths = [], []
     for _ in range(R):
         n = rng.randint(2, max_syms)  # n symbols incl. the escape symbol
-        rows.append(pmf_to_quantized_cdf(rng.rand(n) ** 2 + 1e-3, P))
+        rows.append(pmf_to_quantized_cdf(rng.rand(n) ** 2 + 1e-3, precision))
         lengths.append(n + 1)
     if full_mass_row:
-        rows[0], lengths[0] = np.array(FULL_MASS), 3
+        rows[0], lengths[0] = np.array([0, 1 << precision, 1 << precision]), 3
     cdf = np.zeros((R, max(len(c) for c in rows)), np.int32)
     for r, c in enumerate(rows):
         cdf[r, : len(c)] = c
@@ -47,7 +47,7 @@ def _tables(rng, R=6, max_syms=24, full_mass_row=False):
         cdf_length=np.array(lengths, np.int32),
         cdf_offset=rng.randint(-20, 20, R).astype(np.int32),
         offset=np.zeros(R),
-        precision=P,
+        precision=precision,
     )
 
 
@@ -183,6 +183,27 @@ def test_degenerate_full_mass_row(full_mass):
         vals[0], rows[0], tables, K)
 
 
+def test_full_mass_row_at_precision_15():
+    """At P = 15 a full-mass row's f = 2^15 fills bit 31 of its packed
+    f|c. The port reads it unsigned and writes the NumPy spec's stream,
+    which it decodes. The JAX coder sign-extends f there (its exact divide
+    then leaves its domain, d <= 2^15): its stream differs from the spec's
+    and it cannot decode the spec's (a fault of the reference)."""
+    rng = np.random.RandomState(15)
+    tables = _tables(rng, R=4, full_mass_row=True, precision=15)
+    vals, rows = _elements(rng, tables, (2, 300), escape_frac=0.25, full_mass_row=True)
+    K, cap = 16, 3 * 300 + 2 * 16 + 8
+    words, lengths, _ = _encode(tables, K, cap, vals, rows)
+    for b in range(2):
+        assert words[b, : lengths[b]].tobytes() == rans_ref.rans_encode(
+            vals[b], rows[b], tables, K)
+    out, ok = _decode(tables, K, 300, words, rows)
+    assert ok.all()
+    np.testing.assert_array_equal(out, vals)
+    assert not np.array_equal(_jax_encode(tables, K, cap, vals, rows)[0], words)
+    assert not _jax_decode(tables, K, 300, words, rows)[1].all()
+
+
 @pytest.mark.parametrize("cap", [1, 40, 120])
 def test_too_small_cap_overflows_like_jax(cap):
     rng = np.random.RandomState(cap)
@@ -301,3 +322,172 @@ def test_stream_helpers_match_jax():
     lengths = np.array([5, 1500, 700], np.int32)
     assert dc.fetch_streams(torch.from_numpy(padded), lengths) == jax_dc.fetch_streams(
         jnp.asarray(padded), lengths) == [w.tobytes() for w in words]
+
+
+# -- the kernels' decompositions, emulated in numpy ------------------------
+
+
+@pytest.fixture(scope="module")
+def main_tables():
+    """The main (y) tables: 64 rows at precision 12, as the checkpoint's
+    codec builds them."""
+    return JaxLocScale(JaxNoisyNormal, coding_rank=3)._em.build_tables()
+
+
+def _blob_parts(t):
+    """The table blob of ``csrc/rans.cu``: row info, f|c, buckets."""
+    blob = t.blob.numpy()
+    info = blob[: t.fc_words].reshape(-1, 4).astype(np.int64)
+    fcr = blob[t.fc_words: t.bucket_words].view(np.uint32).astype(np.int64)
+    nb = 1 << (t.precision - t.bucket_bits)
+    words = blob.view(np.uint16)
+    bucket = words[2 * t.bucket_words: 2 * t.bucket_words + t.num_rows * nb]
+    return info, fcr, bucket.reshape(t.num_rows, nb).astype(np.int64)
+
+
+def _emulate_encode(t, vals, rows, K, cap):
+    """K3 as ``csrc/rans.cu`` splits it: (1) every lane walks its steps on
+    its own, reading the blob's row info and f|c, and records its three
+    candidate words and its two flags a step; (2) word positions from the
+    flags alone (head, then per step main / payload-lo / payload-hi words in
+    ascending lane order, a step starting after the words of the steps
+    before it) and the cut at cap."""
+    L, M16, M32 = 1 << 16, 0xFFFF, 0xFFFFFFFF
+    Pt = t.precision
+    info, fcr, _ = _blob_parts(t)
+    B, N = vals.shape
+    T = -(-N // K)
+    out = np.zeros((B, cap), np.uint16)
+    lengths = np.zeros(B, np.int32)
+    for b in range(B):
+        r = np.clip(rows[b].astype(np.int64), 0, t.num_rows - 1)
+        start, E, off = info[r, 0], info[r, 1], info[r, 2]
+        s = ((vals[b].astype(np.int64) - off + (1 << 31)) & M32) - (1 << 31)
+        in_range = (s >= 0) & (s < E)
+        e = np.where(s >= E, ((s - E) & M32) * 2, ((-s) & M32) * 2 - 1) & M32
+        fcv = fcr[start + np.where(in_range, s, E)]
+
+        def pad(a, fill):
+            return np.concatenate([a, np.full(T * K - N, fill, a.dtype)]).reshape(T, K)
+
+        valid, esc = pad(np.ones(N, bool), False), pad(~in_range, False)
+        f, c, e = pad(fcv >> 16, 1), pad(fcv & M16, 0), pad(e, 0)
+        rec = np.zeros((T, 3, K), np.uint16)  # slots: main, payload-lo, payload-hi
+        em = np.zeros((T, K), bool)
+        x = np.full(K, L, np.int64)
+        for step in range(T - 1, -1, -1):  # phase 1: no lane looks at another
+            ok, es = valid[step], esc[step]
+            rec[step, 2] = x & M16
+            rec[step, 1] = e[step] >> 16
+            x = np.where(es, (x & ~M16 & M32) | (e[step] & M16), x)
+            em[step] = ok & ((x >> (32 - Pt)) >= f[step])
+            rec[step, 0] = x & M16
+            x = np.where(em[step], x >> 16, x)
+            fs = np.maximum(f[step], 1)
+            x = np.where(ok, (((x // fs) << Pt) + x % fs + c[step]) & M32, x)
+        # Phase 2: positions from the flags, then the placement.
+        count = em.sum(1) + 2 * esc.sum(1)
+        first = 2 * K + np.concatenate([[0], np.cumsum(count)[:-1]])
+        total = 2 * K + int(count.sum())
+        stream = np.zeros(total, np.uint16)
+        stream[0: 2 * K: 2], stream[1: 2 * K: 2] = x >> 16, x & M16
+        for step in range(T):
+            pos = first[step]
+            for slot, mask in ((0, em[step]), (1, esc[step]), (2, esc[step])):
+                words = rec[step, slot, mask]
+                stream[pos: pos + len(words)] = words
+                pos += len(words)
+        keep = min(total, cap)
+        out[b, :keep] = stream[:keep]
+        lengths[b] = total
+    return out, lengths, lengths > cap
+
+
+@pytest.mark.parametrize("cap", [1, 40, 120, None])
+@pytest.mark.parametrize("K", [4, 16, 128])
+@pytest.mark.parametrize("which", ["main", "synthetic"])
+def test_encoder_decomposition_matches_jax(main_tables, which, K, cap):
+    """The lane pass + compaction of K3, emulated, is byte-equal to the JAX
+    encoder (words, lengths, overflow): the checkpoint's tables and
+    synthetic ones with a full-mass row, 25% escapes with two at the int32
+    limits, a ragged N, and caps that cut the stream."""
+    rng = np.random.RandomState(K + (cap or 0))
+    tables = main_tables if which == "main" else _tables(rng, full_mass_row=True)
+    N = 3 * K + 7 if K == 128 else 203
+    vals, rows = _elements(rng, tables, (2, N), escape_frac=0.25,
+                           full_mass_row=which == "synthetic", extremes=True)
+    cap = cap or 3 * N + 2 * K + 64
+    got = _emulate_encode(rans.RansTables(tables), vals, rows, K, cap)
+    want = _jax_encode(tables, K, cap, vals, rows)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def _emulate_lookup(t, slots):
+    """K2's symbol lookup on the blob, for every row at once: the bucket's
+    first symbol, then forward while the next entry's c is <= the slot.
+    Returns the symbols [R, len(slots)] and the search steps taken."""
+    info, fcr, bucket = _blob_parts(t)
+    start = info[:, :1]
+    m = bucket[:, slots >> t.bucket_bits]
+    steps = np.zeros_like(m)
+    while True:
+        more = (fcr[start + m + 1] & 0xFFFF) <= slots
+        if not more.any():
+            return m, fcr[start + m], steps
+        m, steps = m + more, steps + more
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("which", ["main", "full_mass", "p15", "p4"])
+def test_decoder_tables_give_the_slot_table(main_tables, which, bits):
+    """For every (row, slot), the ragged f|c, its row starts and the slot
+    buckets (of 2^bits slots) give slot2sym's symbol and fc's entry; row
+    info gives the escape and offset."""
+    rng = np.random.RandomState(len(which))
+    tables = {
+        "main": lambda: main_tables,
+        "full_mass": lambda: _tables(rng, R=9, full_mass_row=True),
+        "p15": lambda: _tables(rng, R=5, max_syms=300, full_mass_row=True, precision=15),
+        "p4": lambda: _tables(rng, R=4, max_syms=6, full_mass_row=True, precision=4),
+    }[which]()
+    t = rans.RansTables(tables, bucket_bits=bits)
+    slots = np.arange(1 << t.precision)
+    m, fcv, steps = _emulate_lookup(t, slots)
+    np.testing.assert_array_equal(m, t.slot2sym.numpy())
+    want_fc = np.take_along_axis(t.fc.numpy().astype(np.int64) & 0xFFFFFFFF, m, 1)
+    np.testing.assert_array_equal(fcv, want_fc)
+    info = _blob_parts(t)[0]
+    np.testing.assert_array_equal(info[:, 1], t.escape.numpy())
+    np.testing.assert_array_equal(info[:, 2], t.cdf_offset.numpy())
+    assert steps.max() < 1 << t.bucket_bits  # the search stays in its bucket
+    # The jax package's (padded) tables say the same.
+    theirs = jax_rans.RansTables(tables)
+    np.testing.assert_array_equal(m, np.asarray(theirs.slot2sym))
+
+
+def test_decoder_variant_budget(main_tables):
+    """K2 holds the blob in shared memory when it fits beside the rings
+    (512 + 16,384 + 32,768 bytes) in a block's 232,448 bytes, else reads it
+    through L1; rows that are not well-formed CDFs have no blob."""
+    t = rans.RansTables(main_tables)
+    assert t.table_bytes == 118_624 and rans.decode_variant(t) == "on_chip"
+    rng = np.random.RandomState(1)
+    big = rans.RansTables(_tables(rng, R=48, max_syms=40, precision=15))
+    # 48 rows of 4,096 two-byte buckets alone are 393,216 bytes.
+    assert big.table_bytes > 232_448 - 49_664
+    assert rans.decode_variant(big) == "global"
+    for R in range(1, 64):  # the rule is exactly the byte count
+        sized = rans.RansTables(_tables(np.random.RandomState(R), R=R, max_syms=8,
+                                        precision=14))
+        fits = 49_664 + sized.table_bytes <= 232_448
+        assert rans.decode_variant(sized) == ("on_chip" if fits else "global")
+        words = -(-(4 * R + int(sized.escape.sum()) + 2 * R) // 4) * 4  # row info, f|c
+        words += R * (1 << (14 - sized.bucket_bits)) // 2  # two-byte buckets
+        assert sized.table_bytes == 4 * -(-words // 4) * 4
+    bad = _tables(rng)
+    bad.cdf[2, int(bad.cdf_length[2]) - 1] -= 1  # no longer reaches 2^P
+    assert rans.RansTables(bad).blob is None
+    with pytest.raises(ValueError, match="well-formed"):
+        rans.decode_variant(bad)
+
