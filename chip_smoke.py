@@ -38,17 +38,45 @@ of a checkout. Phases, each fatal on failure:
 7. profile: device time by kernel, and the device's idle share, over one
    compress + decompress and over the pipelined iterators (torch.profiler),
    with each coder; K3 and K2 inside the device codec next to their
-   standalone times of phase 3.
+   standalone times of phase 3;
+8. training, bmshj2018 at full width on batches of 8 crops of 256x256
+   (crop_dataset's synthetic fallback: the card machine has no images and
+   no PIL), all under the fp32 settings of phase 1:
+   a. K1 under autograd (FusedGDN: the kernel's forward, a plain-op
+      backward) against autograd through the twin, dx/dbeta/dgamma at the
+      six training shapes (8x128x128, 8x64x64, 8x32x32 rows of C=192,
+      forward and inverse), within 1e-4 relative and 1e-4 of each one's
+      largest entry; the backward's ops timed;
+   b. one quantized (training=False, deterministic) step of 2 crops from
+      ckpt/bmshj2018.msgpack: loss and every gradient against the CPU
+      (loss 1e-4 relative, gradients 1e-3 of each one's largest entry);
+   c. launches over exactly one training step (train_step): K1 6, K3 0,
+      K2 0;
+   d. 50 steps of train_model from the checkpoint at lr 1e-4, every loss
+      finite, bpp and MSE at steps 1, 10 and 50;
+   e. 100 steps from the seeded init on one fixed batch: the mean of the
+      last 10 losses below the mean of the first 10;
+   f. save after 3 steps, resume in a fresh model and optimizer: params and
+      Adam moments bit-equal to the run that saved them; train_model then
+      numbers its one step 4 (as in the JAX package, the noise generator
+      and the data stream restart from the seed on resume);
+   g. 3 steps with distortion="msssim", every loss finite;
+   h. steps/s and img/s of train_model over 50 steps after 5 warm-up
+      steps, and a profile of 10 steps: device busy time, idle share, and
+      device ms by kind (convolutions forward and backward, K1, the GDN
+      backward's ops, Adam, other).
 
-Then one JSON line with every kernel's numbers, the card line, and the
-last line ``{"ok": true, "device": {...}}``.
+Then one JSON line with every kernel's numbers and the training numbers,
+the card line, and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures as cf
+import dataclasses
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -90,6 +118,16 @@ RANS_ENC_OPS, RANS_DEC_OPS, RANS_ESC_OPS = 28, 19, 9
 # ballot and a barrier.
 RANS_ENC_CHAIN_CYCLES = 13 * 4
 RANS_DEC_CHAIN_CYCLES = 14 * 4 + 4 * 30 + 20 + 30
+# Training: TrainConfig's default batch of 8 crops of 256x256.
+TRAIN_BATCH, TRAIN_PATCH = 8, 256
+TRAIN_GDN_TOL = 1e-4  # K1's Function against the twin's autograd (8a)
+TRAIN_CPU_TOL = 1e-3  # card against CPU gradients, of each one's largest entry (8b)
+DEVICE = "cuda"  # phase 8's device (a CPU rehearsal of its control flow sets "cpu")
+
+
+def sync() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
 
 
 def log(msg: str) -> None:
@@ -690,6 +728,396 @@ def phase_throughput(codec, images, batches: int, card: str, coder: str) -> None
     log(codec.timer.report())
 
 
+def train_gdn_shapes():
+    """(label, rows, inverse, checkpoint layer) of a training step's 6 K1
+    calls on TRAIN_BATCH crops of TRAIN_PATCH."""
+    shapes = []
+    for i, div in enumerate((2, 4, 8)):
+        side = TRAIN_PATCH // div
+        shapes.append((f"gdn{i} {side}x{side}", TRAIN_BATCH * side * side, False,
+                       ("analysis", f"gdn{i}")))
+    for i, div in enumerate((8, 4, 2)):
+        side = TRAIN_PATCH // div
+        shapes.append((f"igdn{i} {side}x{side}", TRAIN_BATCH * side * side, True,
+                       ("synthesis", f"igdn{i}")))
+    return shapes
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def gdn_backward_bounds_ms(rows: int, c: int) -> dict:
+    """Least times of one GDN backward (dx, dbeta, dgamma from x, the output
+    gradient, beta and gamma): x and the gradient read once and dx written
+    once over the HBM rate; its three (rows x C x C) products over the
+    tensor cores' TF32 rate in 3xTF32, or over the fp32 CUDA-core rate."""
+    nbytes = 3 * rows * c * 4 + 2 * (c * c + c) * 4
+    flops = 3 * 2 * rows * c * c
+    return {"bound_bytes_ms": 1e3 * nbytes / PEAK_HBM_BYTES,
+            "bound_tf32_ms": 1e3 * 3 * flops / PEAK_TF32_FLOPS,
+            "bound_fp32_ms": 1e3 * flops / PEAK_FP32_FLOPS}
+
+
+def check_gdn_backward(model, reps: int) -> dict:
+    """8a: FusedGDN's gradients against autograd through the twin at the six
+    training shapes, on the checkpoint's effective beta and gamma; the
+    backward's plain ops timed alone, and forward+backward of the Function
+    and of the twin under autograd."""
+    from compression_tpu_torch.layers import parameters
+    from compression_tpu_torch.layers.gdn_kernel import (
+        FusedGDN, fused_gdn_backward, fused_gdn_reference)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    totals = dict(backward_ms=0.0, fwd_bwd_ms=0.0, twin_fwd_bwd_ms=0.0)
+    worst = 0.0
+    for label, rows, inverse, (tname, lname) in train_gdn_shapes():
+        layer = getattr(getattr(model, tname), lname)
+        with torch.no_grad():
+            beta = parameters.nonneg_apply(layer.beta, layer.beta_min).to(DEVICE)
+            gamma = parameters.nonneg_apply(layer.gamma, 0.0).to(DEVICE)
+        c = gamma.shape[0]
+        x = torch.randn(rows, c, device=DEVICE, generator=gen)
+        gy = torch.randn(rows, c, device=DEVICE, generator=gen)
+        leaves = {}
+
+        def fwd_bwd(fn, key):
+            leaves[key] = [t.clone().requires_grad_() for t in (x, beta, gamma)]
+            return torch.autograd.grad(fn(*leaves[key], inverse), leaves[key], gy)
+
+        got = fwd_bwd(FusedGDN.apply, "fn")
+        want = fwd_bwd(fused_gdn_reference, "twin")
+        sync()
+        errs = []
+        for name, g, w in zip(("dx", "dbeta", "dgamma"), got, want):
+            torch.testing.assert_close(g, w, rtol=TRAIN_GDN_TOL,
+                                       atol=TRAIN_GDN_TOL * w.abs().max().item(),
+                                       msg=lambda m, name=name: f"8a {label} {name}: {m}")
+            errs.append(rel_err(g, w))
+        worst = max(worst, *errs)
+        times = {
+            "backward_ms": cuda_ms(lambda: fused_gdn_backward(gy, x, beta, gamma, inverse), reps),
+            "fwd_bwd_ms": cuda_ms(lambda: fwd_bwd(FusedGDN.apply, "fn"), reps),
+            "twin_fwd_bwd_ms": cuda_ms(lambda: fwd_bwd(fused_gdn_reference, "twin"), reps),
+        }
+        for k, v in times.items():
+            totals[k] += v
+        for k, v in gdn_backward_bounds_ms(rows, c).items():
+            totals[k] = totals.get(k, 0.0) + v
+        log(f"  8a {label:14s} rows {rows:7d}  dx/dbeta/dgamma vs twin autograd "
+            f"{errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} of the largest entry; "
+            f"backward ops {times['backward_ms']:.4f} ms, Function fwd+bwd "
+            f"{times['fwd_bwd_ms']:.4f} ms, twin fwd+bwd {times['twin_fwd_bwd_ms']:.4f} ms")
+        del x, gy, got, want, leaves
+    log(f"  8a over the 6 training calls: backward ops {totals['backward_ms']:.4f} ms, "
+        f"Function fwd+bwd {totals['fwd_bwd_ms']:.4f} ms, twin fwd+bwd "
+        f"{totals['twin_fwd_bwd_ms']:.4f} ms; the backward's bound {totals['bound_bytes_ms']:.4f} "
+        f"ms (bytes), {totals['bound_tf32_ms']:.4f} ms (3xTF32 ops), "
+        f"{totals['bound_fp32_ms']:.4f} ms (fp32 ops); worst gradient error {worst:.2e} "
+        f"(tolerance {TRAIN_GDN_TOL})")
+    return dict(max_rel_err=worst, **totals)
+
+
+def ckpt_model(distortion: str = "mse"):
+    """bmshj2018 at full width with the committed checkpoint's weights (on
+    the CPU)."""
+    from compression_tpu_torch.models import bmshj2018
+
+    return bmshj2018.load_model(ROOT / "ckpt" / "bmshj2018.msgpack",
+                                bmshj2018.Config(distortion=distortion))
+
+
+def train_batches(batch: int, seed: int = 0):
+    from compression_tpu_torch.models import common
+
+    return common.crop_dataset(common.TrainConfig(batch_size=batch, patch_size=TRAIN_PATCH,
+                                                  seed=seed))
+
+
+def check_step_against_cpu() -> float:
+    """8b: one quantized step of 2 crops, card against CPU."""
+    from compression_tpu_torch.models import bmshj2018
+
+    x = torch.from_numpy(next(train_batches(2)))
+    out = {}
+    for device in (DEVICE, "cpu"):
+        model = ckpt_model().to(device)
+        loss, metrics = bmshj2018.make_loss_fn(model, training=False)(x.to(device))
+        loss.backward()
+        out[device] = (loss.item(), {k: v.item() for k, v in metrics.items()},
+                       {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (loss_gpu, m_gpu, g_gpu), (loss_cpu, m_cpu, g_cpu) = out[DEVICE], out["cpu"]
+    np.testing.assert_allclose(loss_gpu, loss_cpu, rtol=1e-4)
+    errs = {n: rel_err(g_gpu[n], g_cpu[n]) for n in g_cpu}
+    worst = max(errs, key=errs.get)
+    log(f"  8b quantized step, 2 crops: loss card {loss_gpu:.6f} cpu {loss_cpu:.6f} "
+        f"(bpp {m_gpu['bpp']:.5f}/{m_cpu['bpp']:.5f}, mse {m_gpu['mse']:.4f}/{m_cpu['mse']:.4f}); "
+        f"{len(errs)} gradients, worst {errs[worst]:.2e} of its largest entry ({worst}), "
+        f"median {float(np.median(list(errs.values()))):.2e}")
+    bad = {n: e for n, e in errs.items() if e > TRAIN_CPU_TOL}
+    if bad:
+        raise AssertionError(f"8b: gradients off the CPU's by more than {TRAIN_CPU_TOL}: {bad}")
+    return errs[worst]
+
+
+def count_step_launches() -> dict:
+    """8c: the training main path's run: one train_step of a batch of 8, the
+    counts set to 0 just before and read just after."""
+    from compression_tpu_torch.codec import rans
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.models import bmshj2018, common
+
+    tcfg = common.TrainConfig()
+    model = ckpt_model().to(DEVICE)
+    optimizer = common.make_optimizer(model, tcfg)
+    loss_fn = bmshj2018.make_loss_fn(model)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.from_numpy(next(train_batches(TRAIN_BATCH))).to(DEVICE)
+    common.train_step(model, optimizer, loss_fn, x, gen, common.lr_schedule(tcfg))  # warm-up
+    sync()
+    fused_gdn.launches = rans.rans_encode.launches = rans.rans_decode.launches = 0
+    loss, _ = common.train_step(model, optimizer, loss_fn, x, gen, common.lr_schedule(tcfg))
+    sync()
+    launches = {"gdn": fused_gdn.launches, "rans_encode": rans.rans_encode.launches,
+                "rans_decode": rans.rans_decode.launches}
+    log(f"  8c one training step of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}: launches "
+        f"{launches} (loss {loss.item():.4f})")
+    if launches != {"gdn": 6, "rans_encode": 0, "rans_decode": 0}:
+        raise AssertionError(f"8c: expected K1 6, K3 0, K2 0 launches, saw {launches}")
+    return launches
+
+
+def train_from_checkpoint(steps: int = 50) -> None:
+    """8d: train_model from the checkpoint at lr 1e-4."""
+    from compression_tpu_torch.models import bmshj2018, common
+
+    seen = {}
+    model = ckpt_model()
+    common.train_model(model, bmshj2018.make_loss_fn(model),
+                       common.TrainConfig(steps=steps, log_every=1, seed=0, learning_rate=1e-4),
+                       hooks=lambda step, m: seen.setdefault(step, m), device=DEVICE)
+    if sorted(seen) != list(range(1, steps + 1)) or not all(
+            np.isfinite(list(m.values())).all() for m in seen.values()):
+        raise AssertionError("8d: missing or non-finite training metrics")
+    log("  8d train_model from the checkpoint, lr 1e-4: " + "; ".join(
+        f"step {k}: loss {seen[k]['loss']:.4f} bpp {seen[k]['bpp']:.4f} mse {seen[k]['mse']:.3f}"
+        for k in (1, 10, steps)))
+
+
+def train_from_scratch(steps: int = 100) -> None:
+    """8e: the seeded init trained on one fixed batch."""
+    from compression_tpu_torch.models import bmshj2018, common
+
+    tcfg = common.TrainConfig()
+    model = bmshj2018.BMSHJ2018Model(bmshj2018.Config(), seed=0).to(DEVICE)
+    optimizer = common.make_optimizer(model, tcfg)
+    loss_fn = bmshj2018.make_loss_fn(model)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.from_numpy(next(train_batches(TRAIN_BATCH))).to(DEVICE)
+    schedule = common.lr_schedule(tcfg)
+    losses = torch.stack([common.train_step(model, optimizer, loss_fn, x, gen, schedule)[0]
+                          .detach() for _ in range(steps)]).cpu().numpy()
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    log(f"  8e {steps} steps from the seeded init on one batch: mean loss of the first 10 "
+        f"{first:.4f}, of the last 10 {last:.4f} (step 1 {losses[0]:.4f}, step {steps} "
+        f"{losses[-1]:.4f})")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError("8e: the loss did not fall")
+
+
+def check_resume(k: int = 3) -> None:
+    """8f: save after k steps, restore into a fresh model and optimizer, then
+    resume through train_model."""
+    import tempfile
+
+    from compression_tpu_torch.models import bmshj2018, common
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = common.TrainConfig(steps=k, log_every=1, checkpoint_dir=tmp,
+                                  checkpoint_name="bmshj2018.train.msgpack", seed=0)
+        path = os.path.join(tmp, tcfg.checkpoint_name)
+        model = ckpt_model().to(DEVICE)
+        optimizer = common.make_optimizer(model, tcfg)
+        loss_fn = bmshj2018.make_loss_fn(model)
+        gen = torch.Generator(device=DEVICE).manual_seed(tcfg.seed)
+        data = train_batches(TRAIN_BATCH, tcfg.seed)
+        next(data)
+        for _ in range(k):
+            common.train_step(model, optimizer, loss_fn, torch.from_numpy(next(data)).to(DEVICE),
+                              gen, common.lr_schedule(tcfg))
+        common.save_checkpoint(path, model, k, optimizer, tcfg)
+        fresh = bmshj2018.BMSHJ2018Model(bmshj2018.Config(), seed=1).to(DEVICE)
+        fresh_opt = common.make_optimizer(fresh, tcfg)
+        step, with_moments = common.restore_checkpoint(path, fresh, fresh_opt)
+        live = dict(model.named_parameters())
+        same = step == k and with_moments and common._updates_done(fresh_opt) == k
+        for name, p in fresh.named_parameters():
+            saved, restored = optimizer.state[live[name]], fresh_opt.state[p]
+            same &= torch.equal(p, live[name]) and all(
+                torch.equal(saved[key], restored[key]) for key in ("exp_avg", "exp_avg_sq"))
+        if not same:
+            raise AssertionError("8f: restored params or moments differ from the saved run")
+        seen = []
+        common.train_model(fresh, bmshj2018.make_loss_fn(fresh),
+                           dataclasses.replace(tcfg, steps=k + 1),
+                           hooks=lambda s, m: seen.append((s, m["loss"])), device=DEVICE)
+        final_step = common.load_checkpoint(path)[1]
+    if [s for s, _ in seen] != [k + 1] or final_step != k + 1 or not np.isfinite(seen[0][1]):
+        raise AssertionError(f"8f: resumed run logged {seen}, saved step {final_step}")
+    log(f"  8f saved at step {k}, restored into a fresh model and Adam: params and moments "
+        f"bit-equal; train_model resumed and took step {k + 1} (loss {seen[0][1]:.4f}); "
+        f"noise and data restart from the seed, as in the JAX package")
+
+
+def train_msssim(steps: int = 3) -> None:
+    """8g: MS-SSIM as the distortion."""
+    from compression_tpu_torch.models import bmshj2018, common
+
+    seen = []
+    model = ckpt_model("msssim")
+    common.train_model(model, bmshj2018.make_loss_fn(model),
+                       common.TrainConfig(steps=steps, log_every=1, seed=0),
+                       hooks=lambda s, m: seen.append(m), device=DEVICE)
+    if len(seen) != steps or not all(np.isfinite(list(m.values())).all() for m in seen):
+        raise AssertionError(f"8g: msssim training gave {seen}")
+    log(f"  8g distortion msssim, {TRAIN_PATCH}x{TRAIN_PATCH} crops: " + "; ".join(
+        f"step {i + 1}: loss {m['loss']:.5f} bpp {m['bpp']:.4f} msssim {m['msssim']:.5f}"
+        for i, m in enumerate(seen)))
+
+
+def kind_of(kernel: str, ops: list) -> str:
+    """The kind of a device kernel, from its name and the names of the CPU
+    ops it was launched under (innermost first)."""
+    chain = " ".join(ops)
+    if "gdn" in kernel.lower():
+        return "K1"
+    if "Optimizer.step" in chain:
+        return "adam"
+    if "FusedGDNBackward" in chain:
+        return "gdn_backward"
+    if "ConvolutionBackward" in chain or "convolution_backward" in chain:
+        return "conv_backward"
+    if "aten::convolution" in chain or "aten::conv2d" in chain:
+        return "conv_forward"
+    return "other"
+
+
+def profile_training(run, steps: int, label: str) -> dict:
+    """Device busy time, idle share and device ms by kind over ``run()``
+    (``steps`` training steps), in all and a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        sync()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    busy = sum(e.time_range.elapsed_us() for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    kinds = dict.fromkeys(("conv_forward", "conv_backward", "K1", "gdn_backward", "adam",
+                           "other"), 0.0)
+    for evt in events:
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
+            continue
+        ops, parent = [], evt
+        while parent is not None:
+            ops.append(parent.name)
+            parent = parent.cpu_parent
+        for kernel in evt.kernels:
+            kinds[kind_of(kernel.name, ops)] += kernel.duration / 1e3
+    if busy == 0:
+        log(f"  8h profile ({label}): the profiler saw no device activity; not measured")
+        return {}
+    attributed = sum(kinds.values())
+    launches = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    log(f"  8h profile ({label}): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle "
+        f"{100 * (1 - busy / wall_ms):.1f}%, {launches} device activities; by kind "
+        f"({attributed:.1f} ms attributed to CPU ops): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in kinds.items()))
+    log(f"  8h a step: wall {wall_ms / steps:.2f} ms, device busy {busy / steps:.2f} ms, "
+        f"{launches / steps:.0f} device activities; "
+        + ", ".join(f"{k} {v / steps:.2f} ms ({100 * v / busy:.1f}%)" for k, v in kinds.items()))
+    per_kernel: dict = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            ms, calls = per_kernel.get(e.name, (0.0, 0))
+            per_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
+    for name, (ms, calls) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  {ms:8.2f} ms {calls:5d}x  {name[:110]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle=1 - busy / wall_ms,
+                by_kind_ms=kinds, device_activities=launches)
+
+
+def time_training(card: str) -> dict:
+    """8h: train_model's rate over 50 steps after 5 warm-up steps, then a
+    profile of 10 steps of its loop body."""
+    from compression_tpu_torch.models import bmshj2018, common
+
+    marks = {}
+
+    def hook(step, m):
+        marks[step] = time.perf_counter()  # m was read with .item(): synced
+
+    model = ckpt_model()
+    common.train_model(model, bmshj2018.make_loss_fn(model),
+                       common.TrainConfig(steps=55, log_every=5, seed=0), hooks=hook,
+                       device=DEVICE)
+    step_ms = 1e3 * (marks[55] - marks[5]) / 50
+    rate = dict(step_ms=step_ms, steps_per_s=1e3 / step_ms,
+                img_per_s=TRAIN_BATCH * 1e3 / step_ms)
+    log(f"  8h train_model ({card}): {rate['step_ms']:.2f} ms a step, "
+        f"{rate['steps_per_s']:.3f} steps/s, {rate['img_per_s']:.2f} img/s over 50 steps of "
+        f"{TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH} after 5 warm-up steps; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    tcfg = common.TrainConfig()
+    optimizer = common.make_optimizer(model, tcfg)
+    loss_fn = bmshj2018.make_loss_fn(model)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    data = train_batches(TRAIN_BATCH)
+    schedule = common.lr_schedule(tcfg)
+
+    def steps(n):
+        for _ in range(n):
+            x = torch.from_numpy(next(data)).pin_memory().to(DEVICE, non_blocking=True)
+            common.train_step(model, optimizer, loss_fn, x, gen, schedule)
+
+    steps(2)  # Adam's state exists before the profiled window
+    prof = profile_training(lambda: steps(10), 10, f"10 training steps, {card}")
+    # Host time a step, without the profiler: making a batch, and enqueuing
+    # a step on a batch already on the card (the device runs behind it).
+    t0 = time.perf_counter()
+    batches = [next(data) for _ in range(10)]
+    data_ms = 1e2 * (time.perf_counter() - t0)
+    x = torch.from_numpy(batches[0]).to(DEVICE)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        common.train_step(model, optimizer, loss_fn, x, gen, schedule)
+    dispatch_ms = 1e2 * (time.perf_counter() - t0)
+    sync()
+    device_ms = 1e2 * (time.perf_counter() - t0)
+    log(f"  8h host a step: synthetic batch {data_ms:.2f} ms, enqueue of train_step "
+        f"{dispatch_ms:.2f} ms (10 steps done on the card after {device_ms:.2f} ms a step)")
+    return dict(rate, **prof, host_data_ms=data_ms, host_dispatch_ms=dispatch_ms)
+
+
+def phase_training(model, card: str, reps: int) -> dict:
+    log("training (phase 8):")
+    gdn_bwd = check_gdn_backward(model, reps)
+    cpu_err = check_step_against_cpu()
+    launches = count_step_launches()
+    train_from_checkpoint()
+    train_from_scratch()
+    check_resume()
+    train_msssim()
+    timing = time_training(card)
+    return dict(launches=launches, gdn_backward=gdn_bwd, cpu_max_rel_err=cpu_err, **timing)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, default=16)
@@ -734,6 +1162,8 @@ def main() -> int:
                       f"{args.batches} batches",
                       lambda: list(codec.decompress_iter(
                           list(codec.compress_iter(batch_list, coder=coder)))))
+    del codec
+    training = phase_training(model, card, args.reps)
 
     kernels = [{
         "name": "gdn",
@@ -747,6 +1177,7 @@ def main() -> int:
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
+        "train_launches": training["launches"]["gdn"],
     }]
     for name, replaces in (("rans_encode", "compression_tpu/codec/rans.py:178"),
                            ("rans_decode", "compression_tpu/codec/rans.py:257")):
@@ -762,9 +1193,17 @@ def main() -> int:
             "bound_ms": rans_k[name]["bound_ms"],
             "bound_by": rans_k[name]["bound_by"],
             "library_ms": None,  # no single PyTorch call computes rANS
+            "train_launches": training["launches"][name],
         })
+    train_line = {
+        "batch": TRAIN_BATCH, "patch": TRAIN_PATCH,
+        **{k: training.get(k) for k in ("step_ms", "steps_per_s", "img_per_s", "busy_ms",
+                                        "wall_ms", "idle", "by_kind_ms", "device_activities",
+                                        "host_data_ms", "host_dispatch_ms", "cpu_max_rel_err")},
+        "gdn_backward": training["gdn_backward"],
+    }
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "training": train_line}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,17 +3,22 @@
 The JAX package ``compression_tpu`` is the reference; this package mirrors
 its module paths so every counterpart is easy to find:
 
-  ops/             lower_bound / upper_bound, same-padding
-  layers/          SignalConv2D, GDN (+ the hand-written CUDA kernel K1)
+  ops/             lower_bound / upper_bound, clip, round_st / soft_round,
+                   same-padding
+  layers/          SignalConv2D, GDN (+ the hand-written CUDA kernel K1, and
+                   K1 under autograd)
   distributions/   Normal, DeepFactorized, uniform-noise adapters, tails
-  entropy_models/  batched (z) and scale-indexed (y) models, CDF tables
+  entropy_models/  batched (z) and scale-indexed (y) models: training calls
+                   and CDF tables
   codec/           native C++ range coder (ctypes) + host API; the device
                    rANS coder (kernels K3/K2) and its NumPy spec
-  models/          bmshj2018 scale-hyperprior Codec (host and device coders)
+  models/          bmshj2018 scale-hyperprior (Codec with the host and device
+                   coders; training), common.py (train loop, data, checkpoints)
   parallel/        double-buffered device/host coding pipeline
-  util/            PackedTensors, image padding, numeric, stage timing
+  util/            PackedTensors, image padding and metrics, numeric, stage timing
   csrc/            CUDA C++ kernels (gdn.cu, rans.cu), built with nvcc at first use
-  convert.py       weight bridge from the JAX package's flax checkpoints
+  convert.py       weight bridge to and from the JAX package's flax checkpoints
+  entry.py         bmshj2018's full-width loss step with example arguments
 
 It imports torch and numpy, never JAX or the JAX package. Entry points run
 on ``device="cuda"`` unless the caller asks for the CPU, and raise when CUDA

@@ -1,16 +1,21 @@
-"""Weight bridge from the JAX package's flax checkpoints to the port.
+"""Weight bridge between the JAX package's flax checkpoints and the port,
+in both directions.
 
 * :func:`load_flax_msgpack` reads a flax ``serialization.to_bytes``
   checkpoint (e.g. ``ckpt/bmshj2018.msgpack``) into nested dicts of NumPy
   arrays, with a small msgpack reader of its own (maps, arrays, strings,
   binaries, ints, floats, and flax's ext types 1 = ndarray ``(shape, dtype
   name, bytes)`` and 3 = NumPy scalar), so the port needs no ``msgpack``.
+  :func:`pack_msgpack` is the matching writer: what it writes, flax's
+  ``serialization.from_bytes`` reads.
 * :func:`params_from_numpy` maps such a tree (``params/params/...`` or any
   suffix of it) onto :class:`~compression_tpu_torch.models.bmshj2018.
   BMSHJ2018Model`'s state dict: conv kernels ``(kh, kw, cin, cout)`` become
   OIHW ``(cout, cin, kh, kw)``; GDN ``beta``/``gamma`` stay raw (sqrt
   space, reparameterized at call time); the DeepFactorized ``matrices`` /
-  ``biases`` / ``factors`` lists map as they are.
+  ``biases`` / ``factors`` lists map as they are. :func:`params_to_numpy`
+  is its inverse, the flax param tree of a state dict (also used for
+  per-parameter optimizer moments).
 """
 
 from __future__ import annotations
@@ -21,8 +26,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["load_flax_msgpack", "unpack_msgpack", "params_from_numpy",
-           "kernel_to_torch"]
+__all__ = ["load_flax_msgpack", "unpack_msgpack", "pack_msgpack",
+           "params_from_numpy", "params_to_numpy", "kernel_to_torch",
+           "flax_key_path"]
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -51,9 +57,9 @@ class _Reader:
             shape, dtype, buf = unpack_msgpack(payload)
             arr = np.frombuffer(buf, dtype=np.dtype(dtype))
             return arr.reshape(tuple(shape)).copy()
-        if code == _EXT_NPSCALAR:
-            dtype, buf = unpack_msgpack(payload)
-            return np.frombuffer(buf, dtype=np.dtype(dtype))[0]
+        if code == _EXT_NPSCALAR:  # a 0-d array's (shape, dtype, bytes)
+            shape, dtype, buf = unpack_msgpack(payload)
+            return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(tuple(shape))[()]
         raise ValueError(f"unsupported msgpack ext type {code}")
 
     def read(self) -> Any:
@@ -115,6 +121,48 @@ def unpack_msgpack(data: bytes) -> Any:
     return obj
 
 
+def _write(obj: Any, out: bytearray) -> None:
+    """Appends the msgpack encoding of ``obj``: dicts (string keys), lists,
+    strings, bytes, ints, and NumPy arrays as flax's ext type 1. Lengths
+    always take their 32-bit forms and ints their 64-bit ones (valid
+    msgpack that flax and :func:`unpack_msgpack` read; not the shortest)."""
+    if isinstance(obj, dict):
+        out += struct.pack(">BI", 0xDF, len(obj))
+        for key, value in obj.items():
+            _write(key, out)
+            _write(value, out)
+    elif isinstance(obj, list):
+        out += struct.pack(">BI", 0xDD, len(obj))
+        for item in obj:
+            _write(item, out)
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        out += struct.pack(">BI", 0xDB, len(data)) + data
+    elif isinstance(obj, bytes):
+        out += struct.pack(">BI", 0xC6, len(obj)) + obj
+    elif isinstance(obj, int):
+        out += struct.pack(">Bq", 0xD3, obj) if obj < 0 else struct.pack(">BQ", 0xCF, obj)
+    elif isinstance(obj, np.ndarray):
+        payload = _array_payload(obj)
+        out += struct.pack(">BIb", 0xC9, len(payload), _EXT_NDARRAY) + payload
+    else:
+        raise TypeError(f"cannot msgpack {type(obj).__name__}")
+
+
+def _array_payload(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject:
+        raise ValueError("object arrays cannot be serialized")
+    return pack_msgpack([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+
+
+def pack_msgpack(obj: Any) -> bytes:
+    """Encodes one object for flax's ``msgpack_restore`` (NumPy arrays as
+    its ext type 1)."""
+    out = bytearray()
+    _write(obj, out)
+    return bytes(out)
+
+
 def load_flax_msgpack(path) -> Dict[str, Any]:
     """Reads a flax msgpack checkpoint into nested dicts of NumPy arrays."""
     with open(path, "rb") as f:
@@ -127,6 +175,12 @@ def kernel_to_torch(kernel: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
 
 
+def kernel_from_torch(weight: torch.Tensor) -> np.ndarray:
+    """OIHW ``(cout, cin, kh, kw)`` -> ``(kh, kw, cin, cout)`` float32."""
+    w = weight.detach().to("cpu", torch.float32).numpy()
+    return np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+
+
 def _as_list(value):
     """A flax tuple is a dict {"0": ..., "1": ...}; a list stays a list."""
     if isinstance(value, dict):
@@ -135,6 +189,7 @@ def _as_list(value):
 
 
 _TRANSFORMS = ("analysis", "synthesis", "hyper_analysis", "hyper_synthesis")
+_PRIOR_FIELDS = ("matrices", "biases", "factors")
 
 
 def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -155,9 +210,48 @@ def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 else:
                     raise KeyError(f"unexpected leaf {name}/{layer}/{leaf}")
     prior = tree["hyperprior"]["deep_factorized"]
-    for field in ("matrices", "biases", "factors"):
+    for field in _PRIOR_FIELDS:
         for i, value in enumerate(_as_list(prior[field])):
             state[f"hyperprior.{field}.{i}"] = torch.from_numpy(
                 np.array(value, np.float32)
             )
     return state
+
+
+def params_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: the flax param tree
+    (``{"analysis": {"conv0": {"kernel": HWIO, "bias": ...}, ...},
+    "hyperprior": {"deep_factorized": {"matrices": {"0": ...}}}}``) of a
+    bmshj2018 state dict, or of any per-parameter dict with its keys."""
+    tree: Dict[str, Any] = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        if parts[0] in _TRANSFORMS:
+            name, layer, leaf = parts
+            if leaf == "weight":
+                leaf, arr = "kernel", kernel_from_torch(value)
+            else:
+                arr = value.detach().to("cpu", torch.float32).numpy().copy()
+            tree.setdefault(name, {}).setdefault(layer, {})[leaf] = arr
+        elif parts[0] == "hyperprior":
+            _, field, i = parts
+            prior = tree.setdefault("hyperprior", {}).setdefault(
+                "deep_factorized", {})
+            prior.setdefault(field, {})[i] = (
+                value.detach().to("cpu", torch.float32).numpy().copy())
+        else:
+            raise KeyError(f"unexpected parameter {key}")
+    return tree
+
+
+def flax_key_path(name: str) -> str:
+    """The JAX package's key path of a parameter, as its optimizer renders
+    it (``"params/analysis/conv0/kernel"``; a DeepFactorized field by its
+    index: ``"params/hyperprior/deep_factorized/0/2"`` for matrices[2])."""
+    parts = name.split(".")
+    if parts[0] == "hyperprior":
+        _, field, i = parts
+        return f"params/hyperprior/deep_factorized/{_PRIOR_FIELDS.index(field)}/{i}"
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "params/" + "/".join(parts)

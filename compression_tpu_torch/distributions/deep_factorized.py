@@ -50,6 +50,10 @@ class DeepFactorized(Distribution):
     def dtype(self):
         return self.matrices[0].dtype
 
+    @property
+    def device(self):
+        return self.matrices[0].device
+
     def _layers(self, dtype):
         """Effective (weight, bias, gate) per layer, promoted to ``dtype``."""
         for i, matrix in enumerate(self.matrices):
@@ -111,28 +115,29 @@ class DeepFactorized(Distribution):
         """(offset, lower, upper) in one batched root-find: all three are
         level sets of the monotone logits (0 and -/+ logit(tail_mass/2))."""
         t = self._tail_logit(tail_mass)
-        targets = torch.tensor([0.0, t, -t], dtype=self.dtype)
+        targets = torch.tensor([0.0, t, -t], dtype=self.dtype, device=self.device)
         x = helpers.estimate_tails(
             self._logits_cumulative,
             targets.reshape((3,) + (1,) * len(self.batch_shape)),
             (3,) + self.batch_shape,
-            self.dtype,
+            self.dtype, self.device,
         )
         return x[0], x[1], x[2]
 
     def _quantization_offset(self):
         return helpers.estimate_tails(
-            self._logits_cumulative, 0.0, self.batch_shape, self.dtype
+            self._logits_cumulative, 0.0, self.batch_shape, self.dtype,
+            self.device,
         )
 
     def _lower_tail(self, tail_mass):
         return helpers.estimate_tails(
             self._logits_cumulative, self._tail_logit(tail_mass),
-            self.batch_shape, self.dtype,
+            self.batch_shape, self.dtype, self.device,
         )
 
     def _upper_tail(self, tail_mass):
         return helpers.estimate_tails(
             self._logits_cumulative, -self._tail_logit(tail_mass),
-            self.batch_shape, self.dtype,
+            self.batch_shape, self.dtype, self.device,
         )

@@ -15,12 +15,15 @@ import torch
 __all__ = ["estimate_tails", "quantization_offset", "lower_tail", "upper_tail"]
 
 
-def estimate_tails(func: Callable, target, shape, dtype=torch.float32):
+def estimate_tails(func: Callable, target, shape, dtype=torch.float32,
+                   device=None):
     """Solves ``func(x) == target`` elementwise for monotone ``func``
-    (increasing or decreasing, detected per element)."""
+    (increasing or decreasing, detected per element), on ``device`` (the
+    CPU by default)."""
     shape = tuple(shape)
-    target = torch.broadcast_to(torch.as_tensor(target, dtype=dtype), shape)
-    probe = torch.zeros(shape, dtype=dtype)
+    target = torch.broadcast_to(
+        torch.as_tensor(target, dtype=dtype, device=device), shape)
+    probe = torch.zeros(shape, dtype=dtype, device=device)
     increasing = func(probe + 1.0) >= func(probe - 1.0)
 
     def enclosed(f_lo, f_hi):
@@ -29,8 +32,8 @@ def estimate_tails(func: Callable, target, shape, dtype=torch.float32):
         return lo_ok & hi_ok
 
     # Expanding bracket, at most 64 doublings.
-    lo = torch.full(shape, -1.0, dtype=dtype)
-    hi = torch.full(shape, 1.0, dtype=dtype)
+    lo = torch.full(shape, -1.0, dtype=dtype, device=device)
+    hi = torch.full(shape, 1.0, dtype=dtype, device=device)
     f_lo, f_hi = func(lo), func(hi)
     for _ in range(64):
         ok = enclosed(f_lo, f_hi)

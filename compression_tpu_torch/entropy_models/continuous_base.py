@@ -1,6 +1,7 @@
-"""Entropy model base: CDF tables for the range coder (counterpart of
-``compression_tpu/entropy_models/continuous_base.py``; the training path,
-``__call__`` with noise and bits, is not ported yet).
+"""Entropy model base: the training helpers (quantization offset,
+straight-through quantization, the likelihood in bits) and the CDF tables
+for the range coder (counterpart of
+``compression_tpu/entropy_models/continuous_base.py``).
 
 Tables are built once, on the host CPU, with the PMF in float64, and turned
 into integer CDFs by the C++ quantizer: integer tables that equal the JAX
@@ -20,6 +21,7 @@ Table build (the JAX package's algorithm, step for step):
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -27,8 +29,9 @@ import torch
 
 from compression_tpu_torch.codec import host as codec
 from compression_tpu_torch.distributions import helpers
+from compression_tpu_torch.ops.round_ops import round_st
 
-__all__ = ["CdfTables", "ContinuousEntropyModelBase"]
+__all__ = ["CdfTables", "ContinuousEntropyModelBase", "uniform_noise"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +54,15 @@ class CdfTables:
         return self.cdf.shape[0]
 
 
+def uniform_noise(y: torch.Tensor, generator: Optional[torch.Generator]):
+    """U(-1/2, 1/2) noise shaped like ``y``, drawn from ``generator`` on
+    y's device (the training-mode quantization surrogate)."""
+    if generator is None:
+        raise ValueError("training=True requires a generator for the noise")
+    return torch.rand(y.shape, generator=generator, dtype=y.dtype,
+                      device=y.device) - 0.5
+
+
 def _host64(t) -> np.ndarray:
     return np.asarray(torch.as_tensor(t).detach().cpu().double().numpy(),
                       np.float64).reshape(-1)
@@ -66,6 +78,8 @@ class ContinuousEntropyModelBase:
       compression: build the range-coder tables now.
       tail_mass: probability mass allowed outside the tabulated range.
       range_coder_precision: CDF precision in bits.
+      laplace_tail_mass: if > 0, the training likelihood is mixed with a
+        Laplace(0, 1) floor so rate gradients never vanish in dead zones.
       offset_heuristic: center the quantization grids on the prior's mode.
       tables: prebuilt tables (skips the build).
     """
@@ -73,12 +87,14 @@ class ContinuousEntropyModelBase:
     def __init__(self, prior, coding_rank: int, *, compression: bool = False,
                  tail_mass: float = 2.0 ** -8,
                  range_coder_precision: int = 12,
+                 laplace_tail_mass: float = 0.0,
                  offset_heuristic: bool = True,
                  tables: Optional[CdfTables] = None):
         self.prior = prior
         self.coding_rank = int(coding_rank)
         self.tail_mass = float(tail_mass)
         self.range_coder_precision = int(range_coder_precision)
+        self.laplace_tail_mass = float(laplace_tail_mass)
         self.offset_heuristic = bool(offset_heuristic)
         self.tables: Optional[CdfTables] = tables
         if compression and self.tables is None:
@@ -87,6 +103,38 @@ class ContinuousEntropyModelBase:
     @property
     def prior_batch_shape(self) -> Tuple[int, ...]:
         return tuple(self.prior.batch_shape)
+
+    # -- training-side helpers ----------------------------------------------
+
+    def quantization_offset(self) -> torch.Tensor:
+        """The grid offset (mod 1) from the prior's mode, without gradient:
+        a placement decision, and its root-find has no derivative."""
+        with torch.no_grad():
+            if not self.offset_heuristic:
+                return torch.zeros(self.prior_batch_shape)
+            return helpers.quantization_offset(self.prior)
+
+    def quantize(self, y: torch.Tensor, offset=None) -> torch.Tensor:
+        """Round to the offset grid with straight-through gradients."""
+        if offset is None:
+            offset = self.quantization_offset().to(y.device)
+        return round_st(y, offset)
+
+    def _log2_prob(self, prior, y: torch.Tensor) -> torch.Tensor:
+        """Training likelihood in bits, with the optional Laplace mix."""
+        log_p = prior.log_prob(y)
+        if self.laplace_tail_mass > 0.0:
+            m = self.laplace_tail_mass
+            # Laplace(0, 1) density as a gradient-carrying floor.
+            laplace_log = -torch.abs(y) - math.log(2.0)
+            log_p = torch.logaddexp(log_p + math.log1p(-m),
+                                    laplace_log + math.log(m))
+        return log_p / math.log(2.0)
+
+    def _bits(self, log2_p: torch.Tensor, ndim: int) -> torch.Tensor:
+        """Bits per coding unit: minus the sum over the ``coding_rank``
+        trailing dims."""
+        return -torch.sum(log2_p, dim=tuple(range(ndim - self.coding_rank, ndim)))
 
     def build_tables(self, prior=None) -> CdfTables:
         """Builds integer CDF tables from the prior (host CPU, float64)."""

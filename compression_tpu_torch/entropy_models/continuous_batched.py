@@ -1,11 +1,17 @@
 """Batched entropy model: one prior per channel, shared across positions
-(counterpart of ``compression_tpu/entropy_models/continuous_batched.py``
-coding path; bmshj2018 codes z with it).
+(counterpart of ``compression_tpu/entropy_models/continuous_batched.py``;
+bmshj2018 codes z with it).
+
+Training: ``em(y, generator, training=True)`` returns ``(y_tilde, bits)``
+with additive uniform noise drawn from ``generator`` (on y's device);
+``training=False`` quantizes with straight-through gradients instead. The
+model is cheap to build around a prior whose parameters carry gradients,
+once a step. Coding: the range-coder paths below, on host tables.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -13,6 +19,7 @@ import torch
 from compression_tpu_torch.codec import host as codec
 from compression_tpu_torch.entropy_models.continuous_base import (
     ContinuousEntropyModelBase,
+    uniform_noise,
 )
 
 __all__ = ["ContinuousBatchedEntropyModel"]
@@ -26,6 +33,24 @@ class ContinuousBatchedEntropyModel(ContinuousEntropyModelBase):
                 f"shape {prior.batch_shape}"
             )
         super().__init__(prior, coding_rank, **kwargs)
+
+    def __call__(self, y: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 training: bool = True):
+        """Returns ``(y_tilde, bits)``; bits summed per coding unit.
+
+        Args:
+          y: ``(*batch, *coding_unit)`` with the prior's batch shape aligned
+            to the trailing dims.
+          generator: source of the U(-1/2, 1/2) noise (training only), on
+            y's device.
+          training: additive noise if True, else straight-through rounding.
+        """
+        if training:
+            y_tilde = y + uniform_noise(y, generator)
+        else:
+            y_tilde = self.quantize(y)
+        return y_tilde, self._bits(self._log2_prob(self.prior, y_tilde), y.ndim)
 
     def _flat_indexes(self, unit_shape: Tuple[int, ...]) -> np.ndarray:
         """Flat prior index for every element of one coding unit."""

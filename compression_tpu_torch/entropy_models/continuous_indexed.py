@@ -1,16 +1,18 @@
 """Indexed entropy models: one CDF row per scale index (counterpart of
-``compression_tpu/entropy_models/continuous_indexed.py`` coding path;
-bmshj2018 codes y with it).
+``compression_tpu/entropy_models/continuous_indexed.py``; bmshj2018 codes y
+with it).
 
 The hyper-synthesis predicts a scale per element; the scale is quantized
 onto the log-spaced table (SCALES_MIN..SCALES_MAX, 64 levels) and the index
-selects the element's CDF row.
+selects the element's CDF row. Training keeps the indexes continuous
+(clipped with identity-if-towards bounds, so gradients keep flowing into
+the network that predicts them); only the coding path rounds them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -18,7 +20,10 @@ import torch
 from compression_tpu_torch.codec import host as codec
 from compression_tpu_torch.entropy_models.continuous_base import (
     ContinuousEntropyModelBase,
+    uniform_noise,
 )
+from compression_tpu_torch.ops.math_ops import lower_bound, upper_bound
+from compression_tpu_torch.ops.round_ops import round_st
 
 __all__ = [
     "ContinuousIndexedEntropyModel",
@@ -67,7 +72,8 @@ class ContinuousIndexedEntropyModel(ContinuousEntropyModelBase):
     def __init__(self, prior_fn: Callable, index_ranges: Sequence[int],
                  parameter_fns: Dict[str, Callable], coding_rank: int, *,
                  compression: bool = False, tail_mass: float = 2.0 ** -8,
-                 range_coder_precision: int = 12, tables=None):
+                 range_coder_precision: int = 12,
+                 laplace_tail_mass: float = 0.0, tables=None):
         self.prior_fn = prior_fn
         self.index_ranges = tuple(int(r) for r in index_ranges)
         if len(self.index_ranges) != 1:
@@ -77,7 +83,7 @@ class ContinuousIndexedEntropyModel(ContinuousEntropyModelBase):
         super().__init__(
             self._make_prior(grid), coding_rank, compression=False,
             tail_mass=tail_mass, range_coder_precision=range_coder_precision,
-            offset_heuristic=False,
+            laplace_tail_mass=laplace_tail_mass, offset_heuristic=False,
         )
         if tables is not None:
             self.tables = tables
@@ -87,6 +93,23 @@ class ContinuousIndexedEntropyModel(ContinuousEntropyModelBase):
     def _make_prior(self, indexes):
         params = {k: fn(indexes) for k, fn in self.parameter_fns.items()}
         return self.prior_fn(**params)
+
+    def _normalize_indexes(self, indexes: torch.Tensor) -> torch.Tensor:
+        """Clips continuous indexes into [0, levels - 1], differentiably."""
+        return upper_bound(lower_bound(indexes, 0.0), self.index_ranges[0] - 1)
+
+    def __call__(self, y: torch.Tensor, indexes: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 training: bool = True):
+        """Returns ``(y_tilde, bits)``; bits summed over the coding_rank
+        dims. ``training`` adds U(-1/2, 1/2) noise from ``generator``;
+        otherwise y is rounded with straight-through gradients."""
+        prior = self._make_prior(self._normalize_indexes(indexes))
+        if training:
+            y_tilde = y + uniform_noise(y, generator)
+        else:
+            y_tilde = round_st(y)
+        return y_tilde, self._bits(self._log2_prob(prior, y_tilde), y.ndim)
 
     def compress_symbols(self, symbols: np.ndarray,
                          flat_indexes: np.ndarray) -> List[bytes]:
@@ -120,7 +143,8 @@ class LocationScaleIndexedEntropyModel:
                  coding_rank: int = 1, *, scales_min: float = SCALES_MIN,
                  scales_max: float = SCALES_MAX, compression: bool = False,
                  tail_mass: float = 2.0 ** -8,
-                 range_coder_precision: int = 12, tables=None):
+                 range_coder_precision: int = 12,
+                 laplace_tail_mass: float = 0.0, tables=None):
         self.scale_fn = lambda i: log_scale_fn(  # noqa: E731
             i, scales_min, scales_max, num_scales
         )
@@ -137,12 +161,31 @@ class LocationScaleIndexedEntropyModel:
             compression=compression,
             tail_mass=tail_mass,
             range_coder_precision=range_coder_precision,
+            laplace_tail_mass=laplace_tail_mass,
             tables=tables,
         )
 
     @property
     def tables(self):
         return self._em.tables
+
+    def __call__(self, y: torch.Tensor, scale: torch.Tensor, loc=None,
+                 generator: Optional[torch.Generator] = None,
+                 training: bool = True):
+        """Returns ``(y_tilde, bits)`` of y under the noisy prior at
+        ``scale`` (and ``loc``, subtracted before and added back after)."""
+        indexes = self.inverse_scale_fn(scale)
+        center = y if loc is None else y - loc
+        y_tilde, bits = self._em(center, indexes, generator, training)
+        if loc is not None:
+            y_tilde = y_tilde + loc
+        return y_tilde, bits
+
+    def quantize(self, y: torch.Tensor, loc=None) -> torch.Tensor:
+        """Straight-through rounding (around ``loc`` when given)."""
+        if loc is None:
+            return round_st(y)
+        return round_st(y - loc) + loc
 
     def rows(self, scale: torch.Tensor) -> torch.Tensor:
         """Canonical scale -> CDF row map, shared by the encode and decode

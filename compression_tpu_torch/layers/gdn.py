@@ -8,9 +8,10 @@ For an input with channels ``i`` (the trailing axis)::
     y_i    = x_i * norm_i^(+epsilon)          (inverse / IGDN)
 
 The classic ``alpha=2, epsilon=0.5`` form always goes through the fused
-kernel K1 (:func:`compression_tpu_torch.layers.gdn_kernel.fused_gdn`: the
-CUDA kernel on the card, its plain twin on the CPU); other exponents take
-plain torch ops. ``beta``/``gamma`` are stored raw, in sqrt space, and
+kernel K1, with or without gradients
+(:func:`compression_tpu_torch.layers.gdn_kernel.gdn_autograd`: the CUDA
+kernel on the card, its plain twin on the CPU, and a backward in plain
+torch ops); other exponents take plain torch ops. ``beta``/``gamma`` are stored raw, in sqrt space, and
 reparameterized by ``nonneg_apply`` at call time.
 """
 
@@ -20,7 +21,7 @@ import torch
 from torch import nn
 
 from compression_tpu_torch.layers import parameters
-from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+from compression_tpu_torch.layers.gdn_kernel import gdn_autograd
 
 __all__ = ["GDN"]
 
@@ -61,7 +62,7 @@ class GDN(nn.Module):
         if self.rectify:
             x = torch.relu(x)
         if self.alpha == 2.0 and self.epsilon == 0.5:
-            return fused_gdn(x.contiguous(), beta, gamma, inverse=self.inverse)
+            return gdn_autograd(x, beta, gamma, self.inverse)
         if self.alpha == 1.0:
             pooled = torch.abs(x)
         else:

@@ -8,6 +8,12 @@ gamma)``, or ``x * sqrt(...)`` for IGDN, with fp32 accumulation.
 * ``fused_gdn(x, beta, gamma, inverse)`` launches ``csrc/gdn.cu`` for a
   CUDA tensor (or raises), and runs the plain twin ``fused_gdn_reference``
   for a CPU tensor. ``fused_gdn.launches`` counts kernel launches.
+* ``gdn_autograd(x, beta, gamma, inverse)`` is the same forward under
+  autograd (:class:`FusedGDN`): the kernel (or, for a CPU tensor, the twin)
+  computes ``y``, and the backward is plain torch ops. The JAX package has
+  no backward kernel either: its gradient is XLA's autodiff of the
+  ``tensordot`` path (``compression_tpu/layers/gdn.py:94-109``), products
+  outside any Pallas kernel.
 * The CUDA source is compiled with nvcc for ``sm_90a`` at first use, into
   ``csrc/build/`` (listed in .gitignore), as a shared library with a plain
   C interface loaded with ctypes (:mod:`compression_tpu_torch.util.cuda_build`).
@@ -24,12 +30,16 @@ import pathlib
 import threading
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from compression_tpu_torch.util import cuda_build
 
 __all__ = [
+    "FusedGDN",
     "fused_gdn",
+    "fused_gdn_backward",
     "fused_gdn_reference",
+    "gdn_autograd",
     "build",
     "supported_channels",
 ]
@@ -122,10 +132,11 @@ def fused_gdn(x, beta, gamma, inverse: bool = False):
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, beta, gamma)
     ):
-        # Like the TPU kernel, K1 is forward only: differentiate the twin.
+        # The kernel is forward only; gradients go through FusedGDN, whose
+        # forward runs this function with autograd off.
         raise RuntimeError(
-            "fused_gdn: the CUDA kernel has no backward; run it under "
-            "torch.no_grad() or differentiate fused_gdn_reference"
+            "fused_gdn: the CUDA kernel has no backward of its own; "
+            "differentiate through gdn_autograd (FusedGDN), as GDN does"
         )
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     rows = x.numel() // c
@@ -147,3 +158,55 @@ def fused_gdn(x, beta, gamma, inverse: bool = False):
 
 
 fused_gdn.launches = 0
+
+
+def fused_gdn_backward(grad, x, beta, gamma, inverse: bool = False):
+    """Gradients of ``y = x * s`` with ``s = norm^(-1/2)`` (``norm^(1/2)``
+    for IGDN), ``norm = (x*x) @ gamma + beta``, in plain torch ops (fp32
+    ``torch.matmul``): with ``h = grad * x * ds/dnorm``,
+    ``dx = grad * s + 2 x (h @ gamma^T)``, ``dgamma = (x*x)^T @ h`` and
+    ``dbeta = sum_rows h``. Returns ``(dx, dbeta, dgamma)``."""
+    c = x.shape[-1]
+    x2 = x * x
+    norm = torch.matmul(x2, gamma).add_(beta)
+    if inverse:
+        s = norm.sqrt_()
+        ds = torch.reciprocal(s).mul_(0.5)          # 1 / (2 s)
+    else:
+        s = norm.rsqrt_()
+        ds = (s * s).mul_(s).mul_(-0.5)              # -s^3 / 2
+    h = ds.mul_(grad).mul_(x)
+    dx = torch.matmul(h, gamma.t()).mul_(x).mul_(2.0).addcmul_(grad, s)
+    h2 = h.reshape(-1, c)
+    dgamma = torch.matmul(x2.reshape(-1, c).t(), h2)
+    dbeta = h2.sum(0)
+    return dx, dbeta, dgamma
+
+
+class FusedGDN(torch.autograd.Function):
+    """K1 under autograd: the forward is :func:`fused_gdn` (the kernel on the
+    card, the twin on the CPU; ``fused_gdn.launches`` counts the kernel's
+    launches), the backward :func:`fused_gdn_backward`, which recomputes
+    the norm from the saved x rather than keeping it from the forward."""
+
+    @staticmethod
+    def forward(ctx, x, beta, gamma, inverse):
+        ctx.inverse = bool(inverse)
+        ctx.save_for_backward(x, beta, gamma)
+        return fused_gdn(x, beta, gamma, ctx.inverse)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, beta, gamma = ctx.saved_tensors
+        dx, dbeta, dgamma = fused_gdn_backward(grad, x, beta, gamma, ctx.inverse)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dbeta if need[1] else None,
+                dgamma if need[2] else None, None)
+
+
+def gdn_autograd(x, beta, gamma, inverse: bool = False):
+    """:func:`fused_gdn` with gradients (see :class:`FusedGDN`). ``x`` is
+    made contiguous first, as the kernel takes ``(rows, C)`` rows only."""
+    return FusedGDN.apply(x.contiguous(), beta.contiguous(), gamma.contiguous(),
+                          inverse)

@@ -8,7 +8,7 @@ materializes the distribution object on each call.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -24,15 +24,21 @@ class DeepFactorizedPrior(nn.Module):
 
     ``forward(noisy=True)`` returns the uniform-noise-convolved
     distribution an entropy model codes with; ``noisy=False`` the density.
+    The biases are drawn U(-1/2, 1/2) from ``generator`` (a fresh one
+    seeded 0 if none is given), the rest is constant, as in
+    ``DeepFactorized.create``.
     """
 
     def __init__(self, batch_shape: Tuple[int, ...],
                  num_filters: Sequence[int] = (3, 3, 3),
-                 init_scale: float = 10.0):
+                 init_scale: float = 10.0,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         batch_shape = tuple(batch_shape)
         filters = (1,) + tuple(num_filters) + (1,)
         scale = init_scale ** (1.0 / (len(num_filters) + 1))
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
         self.matrices = nn.ParameterList()
         self.biases = nn.ParameterList()
         self.factors = nn.ParameterList()
@@ -43,7 +49,8 @@ class DeepFactorizedPrior(nn.Module):
                 nn.Parameter(torch.full(shape, init))
             )
             self.biases.append(nn.Parameter(
-                torch.rand(batch_shape + (filters[i + 1], 1)) - 0.5
+                torch.rand(batch_shape + (filters[i + 1], 1),
+                           generator=generator) - 0.5
             ))
             if i < len(num_filters):
                 self.factors.append(nn.Parameter(

@@ -31,7 +31,7 @@ from torch import nn
 
 from compression_tpu_torch.ops.padding_ops import same_padding_for_kernel
 
-__all__ = ["signal_conv", "phase_kernel", "SignalConv2D"]
+__all__ = ["signal_conv", "phase_kernel", "SignalConv2D", "fan_avg_truncated_normal"]
 
 _Pad = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -160,11 +160,35 @@ def signal_conv(
     return _conv_nhwc(x, weight, pad, sd)
 
 
+# Standard deviation of a unit normal cut at +-2 (the JAX initializer's
+# correction, so the cut distribution keeps the asked-for variance).
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def fan_avg_truncated_normal(weight: torch.Tensor,
+                             generator: torch.Generator) -> torch.Tensor:
+    """Fills an OIHW ``weight`` as ``variance_scaling(1.0, "fan_avg",
+    "truncated_normal")``, the JAX package's default kernel init: a normal
+    cut at +-2 standard deviations, scaled to variance ``1 / fan_avg`` with
+    ``fan_avg = (cin + cout) * kh * kw / 2``; drawn by the inverse CDF from
+    ``generator``'s uniforms, as ``jax.random.truncated_normal`` draws."""
+    cout, cin, kh, kw = weight.shape
+    fan_avg = (cin + cout) * kh * kw / 2.0
+    std = math.sqrt(1.0 / fan_avg) / _TRUNCATED_STD
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    with torch.no_grad():
+        u = torch.rand(weight.shape, generator=generator, dtype=torch.float64)
+        z = math.sqrt(2.0) * torch.erfinv(lo + (hi - lo) * u)
+        return weight.copy_(torch.clamp(z, -2.0, 2.0) * std)
+
+
 class SignalConv2D(nn.Module):
     """2-D SignalConv over NHWC activations (see module docstring).
 
-    Parameters: ``weight`` OIHW ``(num_filters, in_channels, kh, kw)`` and,
-    with ``use_bias``, ``bias`` ``(num_filters,)``.
+    Parameters: ``weight`` OIHW ``(num_filters, in_channels, kh, kw)``,
+    drawn by :func:`fan_avg_truncated_normal` from ``generator`` (a fresh
+    one seeded 0 if none is given), and, with ``use_bias``, ``bias``
+    ``(num_filters,)`` at zero.
     """
 
     def __init__(
@@ -180,6 +204,7 @@ class SignalConv2D(nn.Module):
         extra_pad_end: bool = True,
         use_bias: bool = False,
         activation: Optional[Callable] = None,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         kh, kw = _pair(kernel_support, "kernel_support")
@@ -193,9 +218,9 @@ class SignalConv2D(nn.Module):
             torch.empty(num_filters, in_channels, kh, kw)
         )
         self.bias = nn.Parameter(torch.zeros(num_filters)) if use_bias else None
-        # Glorot-uniform, the fan-average scale of the JAX default init.
-        bound = math.sqrt(6.0 / ((in_channels + num_filters) * kh * kw))
-        nn.init.uniform_(self.weight, -bound, bound)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        fan_avg_truncated_normal(self.weight, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = signal_conv(

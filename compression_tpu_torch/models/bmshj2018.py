@@ -1,6 +1,6 @@
 """bmshj2018: the scale-hyperprior image codec (counterpart of
-``compression_tpu/models/bmshj2018.py``: the four transforms and ``Codec``
-with both entropy coders).
+``compression_tpu/models/bmshj2018.py``: the four transforms, training,
+and ``Codec`` with both entropy coders).
 
 A 4-layer GDN analysis/synthesis pair for the latent y, and a hyper pair
 producing a per-element scale sigma for y. z is coded with a factorized
@@ -15,17 +15,22 @@ prior, y with the scale-indexed NoisyNormal tables, by one of two coders:
 Both formats are byte-compatible with the JAX package's blobs, and the
 decoder detects the format per batch.
 
+Training: ``model(x, generator, training)`` gives ``(x_hat, y_bits,
+z_bits)``, :func:`make_loss_fn` the rate-distortion loss and :func:`train`
+runs :func:`compression_tpu_torch.models.common.train_model`. In training
+the hyper-synthesis runs on the whole batch; the codec runs it one image at
+a time for the bitstream's sake.
+
 Layouts at the public boundary are the JAX package's: images NHWC uint8,
 latents ``(N, h, w, C)``. Not ported yet: ``decompress_batch_jit``,
-``SpatialCodec``, the sharded transforms, the table disk cache, and
-training.
+``SpatialCodec``, the sharded transforms, and the table disk cache.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -39,6 +44,7 @@ from compression_tpu_torch.entropy_models import (
 )
 from compression_tpu_torch.layers import GDN, SignalConv2D
 from compression_tpu_torch.layers.priors import DeepFactorizedPrior
+from compression_tpu_torch.models import common
 from compression_tpu_torch.models.device_coding import (
     fetch_streams,
     is_device_coded,
@@ -60,11 +66,15 @@ __all__ = [
     "BMSHJ2018Model",
     "Codec",
     "load_model",
+    "make_loss_fn",
+    "train",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
+    lmbda: float = 0.01
+    distortion: str = "mse"        # "mse" | "msssim"
     num_filters: int = 192      # transform width
     num_latents: int = 192      # channels of y
     num_hyperlatents: int = 128  # channels of z
@@ -72,26 +82,26 @@ class Config:
     downscale: int = 64          # 16 (analysis) * 4 (hyper-analysis)
 
 
-def _down(cin, cout, k, bias, activation=None):
+def _down(cin, cout, k, bias, gen, activation=None):
     return SignalConv2D(cin, cout, k, corr=True, strides_down=2,
                         padding="same_zeros", use_bias=bias,
-                        activation=activation)
+                        activation=activation, generator=gen)
 
 
-def _up(cin, cout, k, activation=None):
+def _up(cin, cout, k, gen, activation=None):
     return SignalConv2D(cin, cout, k, corr=False, strides_up=2,
                         padding="same_zeros", use_bias=True,
-                        activation=activation)
+                        activation=activation, generator=gen)
 
 
 class AnalysisTransform(nn.Module):
-    def __init__(self, num_filters: int, num_latents: int):
+    def __init__(self, num_filters: int, num_latents: int, gen: torch.Generator):
         super().__init__()
         for i in range(3):
             self.add_module(f"conv{i}", _down(3 if i == 0 else num_filters,
-                                              num_filters, 5, True))
+                                              num_filters, 5, True, gen))
             self.add_module(f"gdn{i}", GDN(num_filters))
-        self.conv3 = _down(num_filters, num_latents, 5, False)
+        self.conv3 = _down(num_filters, num_latents, 5, False, gen)
 
     def forward(self, x):
         for i in range(3):
@@ -100,13 +110,13 @@ class AnalysisTransform(nn.Module):
 
 
 class SynthesisTransform(nn.Module):
-    def __init__(self, num_filters: int, num_latents: int):
+    def __init__(self, num_filters: int, num_latents: int, gen: torch.Generator):
         super().__init__()
         for i in range(3):
             self.add_module(f"conv{i}", _up(num_latents if i == 0 else num_filters,
-                                            num_filters, 5))
+                                            num_filters, 5, gen))
             self.add_module(f"igdn{i}", GDN(num_filters, inverse=True))
-        self.conv3 = _up(num_filters, 3, 5)
+        self.conv3 = _up(num_filters, 3, 5, gen)
 
     def forward(self, y):
         for i in range(3):
@@ -115,13 +125,14 @@ class SynthesisTransform(nn.Module):
 
 
 class HyperAnalysisTransform(nn.Module):
-    def __init__(self, num_filters: int, num_latents: int, num_hyperlatents: int):
+    def __init__(self, num_filters: int, num_latents: int, num_hyperlatents: int,
+                 gen: torch.Generator):
         super().__init__()
         self.conv0 = SignalConv2D(num_latents, num_filters, 3, corr=True,
                                   padding="same_zeros", use_bias=True,
-                                  activation=torch.relu)
-        self.conv1 = _down(num_filters, num_filters, 5, True, torch.relu)
-        self.conv2 = _down(num_filters, num_hyperlatents, 5, False)
+                                  activation=torch.relu, generator=gen)
+        self.conv1 = _down(num_filters, num_filters, 5, True, gen, torch.relu)
+        self.conv2 = _down(num_filters, num_hyperlatents, 5, False, gen)
 
     def forward(self, y):
         return self.conv2(self.conv1(self.conv0(torch.abs(y))))
@@ -130,15 +141,20 @@ class HyperAnalysisTransform(nn.Module):
 class HyperSynthesisTransform(nn.Module):
     """z_hat -> sigma, bounded below by the scale table's lower edge."""
 
-    def __init__(self, num_filters: int, num_latents: int, num_hyperlatents: int):
+    def __init__(self, num_filters: int, num_latents: int, num_hyperlatents: int,
+                 gen: torch.Generator):
         super().__init__()
-        self.conv0 = _up(num_hyperlatents, num_filters, 5, torch.relu)
-        self.conv1 = _up(num_filters, num_filters, 5, torch.relu)
+        self.conv0 = _up(num_hyperlatents, num_filters, 5, gen, torch.relu)
+        self.conv1 = _up(num_filters, num_filters, 5, gen, torch.relu)
         self.conv2 = SignalConv2D(num_filters, num_latents, 3, corr=True,
-                                  padding="same_zeros", use_bias=True)
+                                  padding="same_zeros", use_bias=True,
+                                  generator=gen)
 
     def forward(self, z):
         sigma = self.conv2(self.conv1(self.conv0(z)))
+        # lower_bound (identity-if-towards), not a hard max: at init sigma is
+        # below SCALES_MIN almost everywhere, and a max would cut every rate
+        # gradient into the hyper-synthesis.
         return lower_bound(sigma, SCALES_MIN)
 
 
@@ -147,19 +163,38 @@ class BMSHJ2018Model(nn.Module):
 
     Submodule and parameter names follow the JAX package's param tree, so
     :func:`compression_tpu_torch.convert.params_from_numpy` maps a flax
-    checkpoint onto ``load_state_dict``.
+    checkpoint onto ``load_state_dict``. The initial weights are drawn from
+    one generator seeded with ``seed``, layer by layer.
     """
 
-    def __init__(self, config: Config = Config()):
+    def __init__(self, config: Config = Config(), seed: int = 0):
         super().__init__()
         self.config = cfg = config
-        self.analysis = AnalysisTransform(cfg.num_filters, cfg.num_latents)
-        self.synthesis = SynthesisTransform(cfg.num_filters, cfg.num_latents)
+        gen = torch.Generator().manual_seed(seed)
+        self.analysis = AnalysisTransform(cfg.num_filters, cfg.num_latents, gen)
+        self.synthesis = SynthesisTransform(cfg.num_filters, cfg.num_latents, gen)
         self.hyper_analysis = HyperAnalysisTransform(
-            cfg.num_filters, cfg.num_latents, cfg.num_hyperlatents)
+            cfg.num_filters, cfg.num_latents, cfg.num_hyperlatents, gen)
         self.hyper_synthesis = HyperSynthesisTransform(
-            cfg.num_filters, cfg.num_latents, cfg.num_hyperlatents)
-        self.hyperprior = DeepFactorizedPrior((cfg.num_hyperlatents,))
+            cfg.num_filters, cfg.num_latents, cfg.num_hyperlatents, gen)
+        self.hyperprior = DeepFactorizedPrior((cfg.num_hyperlatents,),
+                                              generator=gen)
+        self._main_em = LocationScaleIndexedEntropyModel(NoisyNormal, coding_rank=3)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                training: bool = True):
+        """x in [0, 1] (N, H, W, 3) -> ``(x_hat, y_bits, z_bits)``, bits per
+        image. ``training`` adds U(-1/2, 1/2) noise to z, then to y, from
+        ``generator`` (on x's device); otherwise both are rounded with
+        straight-through gradients (z on its prior's offset grid)."""
+        y = self.analysis(x)
+        z = self.hyper_analysis(y)
+        side_em = ContinuousBatchedEntropyModel(self.hyperprior(), coding_rank=3)
+        z_tilde, z_bits = side_em(z, generator, training)
+        sigma = self.hyper_synthesis(z_tilde)
+        y_tilde, y_bits = self._main_em(y, sigma, generator=generator,
+                                        training=training)
+        return self.synthesis(y_tilde), y_bits, z_bits
 
     def encode_latents(self, x):
         """x in [0, 1] (N, H, W, 3) -> (y, z)."""
@@ -171,6 +206,32 @@ class BMSHJ2018Model(nn.Module):
 
     def synthesize(self, y_hat):
         return self.synthesis(y_hat)
+
+
+def make_loss_fn(model: BMSHJ2018Model, training: bool = True):
+    """``loss_fn(batch, generator) -> (loss, {"bpp", <metric>})``: bits per
+    pixel plus ``lmbda`` times the configured distortion."""
+    cfg = model.config
+
+    def loss_fn(x, generator=None):
+        x_hat, y_bits, z_bits = model(x, generator, training)
+        num_pixels = x.shape[1] * x.shape[2]
+        bpp = (torch.mean(y_bits) + torch.mean(z_bits)) / num_pixels
+        dist, mname, mval = common.distortion_loss(x, x_hat, cfg.distortion)
+        return bpp + cfg.lmbda * dist, {"bpp": bpp, mname: mval}
+
+    return loss_fn
+
+
+def train(cfg: Config, train_cfg: common.TrainConfig, params=None,
+          device="cuda"):
+    """Builds the model (seeded with ``train_cfg.seed``, or from ``params``,
+    a state dict), trains it and returns it."""
+    model = BMSHJ2018Model(cfg, seed=train_cfg.seed)
+    if params is not None:
+        model.load_state_dict(params)
+    return common.train_model(model, make_loss_fn(model), train_cfg,
+                              device=device)
 
 
 def load_model(path, config: Config = Config()) -> BMSHJ2018Model:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["lower_bound", "upper_bound"]
+__all__ = ["lower_bound", "upper_bound", "clip"]
 
 _VALID_GRADIENTS = ("identity_if_towards", "disconnected", "identity")
 
@@ -73,3 +73,13 @@ def upper_bound(inputs, bound, gradient: str = "identity_if_towards"):
         raise ValueError(f"Invalid gradient: {gradient!r}; use {_VALID_GRADIENTS}")
     inputs = torch.as_tensor(inputs)
     return _UpperBound.apply(inputs, _as_bound(inputs, bound), gradient)
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``min(max(x, lo), hi)`` with jnp.clip's gradient: where x equals a
+    bound, half the gradient passes (torch.clamp passes all of it). The
+    tie is common where a layer outputs exact zeros, as an untrained
+    synthesis does on all-zero latents."""
+    lo_t = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)

@@ -305,7 +305,7 @@ def test_cuda_is_the_default_and_missing_cuda_raises(small_models):
 # -- the port stands alone ------------------------------------------------
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax|flax|msgpack)\b|compression_tpu\.", re.M
+    r"^\s*(import|from)\s+(jax|flax|optax|msgpack)\b|compression_tpu\.", re.M
 )
 
 

@@ -1,6 +1,6 @@
 """Tests of the port that need the card: the CUDA kernels (K1 fused GDN, K3/K2
-rANS encode/decode) against their plain twins, and the codec on the card,
-with either coder, against the CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
+rANS encode/decode) against their plain twins, K1 under autograd, the codec
+on the card with either coder, and a training step, against the CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
 without JAX run it alone, without the suite's conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -16,7 +16,8 @@ from compression_tpu_torch import convert
 from compression_tpu_torch.codec import pmf_to_quantized_cdf, rans, rans_ref
 from compression_tpu_torch.entropy_models.continuous_base import CdfTables
 from compression_tpu_torch.layers import fused_gdn, fused_gdn_reference, parameters
-from compression_tpu_torch.models import bmshj2018
+from compression_tpu_torch.layers.gdn_kernel import FusedGDN
+from compression_tpu_torch.models import bmshj2018, common
 from compression_tpu_torch.models.device_coding import rans_for
 from compression_tpu_torch.util import PackedTensors
 from compression_tpu_torch.util.image import pad_to_multiple_np
@@ -380,3 +381,78 @@ def test_codec_device_coder_on_card(cuda):
     assert K == 128 and not overflow.any()
     for b in range(n):
         assert bytes(fields[b][0][0]) == stream[b, : int(lengths[b])].numpy().tobytes()
+
+
+# -- training: K1 under autograd, one step against the CPU --------------------
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 192])
+@pytest.mark.parametrize("rows", [1, 4551, 131_072])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_function_gradients_match_twin_autograd(cuda, c, rows, inverse):
+    """FusedGDN (K1 forward, plain-op backward) against autograd through
+    the twin on the same card tensors: one K1 launch, y within the kernel's
+    tolerance, dx/dbeta/dgamma within 1e-4 relative and 1e-4 of each one's
+    largest entry (fp32 products in another order)."""
+    x, beta, gamma = _inputs(rows + c, rows, c, cuda)
+    gy = torch.randn(rows, c, device=cuda, generator=torch.Generator(cuda).manual_seed(rows))
+    results = []
+    for fn in (lambda *a: FusedGDN.apply(*a, inverse),
+               lambda *a: fused_gdn_reference(*a, inverse)):
+        leaves = [t.clone().requires_grad_() for t in (x, beta, gamma)]
+        before = fused_gdn.launches
+        y = fn(*leaves)
+        launched = fused_gdn.launches - before
+        y.backward(gy)
+        torch.cuda.synchronize()
+        results.append((y.detach(), *(t.grad for t in leaves), launched))
+    (y, dx, db, dg, n), (y_ref, dx_ref, db_ref, dg_ref, n_ref) = results
+    assert (n, n_ref) == (1, 0)
+    torch.testing.assert_close(y, y_ref, **TOL)
+    for got, want in ((dx, dx_ref), (db, db_ref), (dg, dg_ref)):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item())
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One quantized (training=False) step of a C = 32 model: the card's
+    loss and every gradient against the same step on the CPU (loss 1e-4
+    relative; gradients 1e-3 relative plus 1e-3 of each one's largest
+    entry: K1's 3xTF32 forward and cuDNN's fp32 sums). Adam's first update
+    is about lr * sign(gradient), so near-zero gradients whose sign differs
+    move params apart by 2 lr: the update itself is held to optax on the
+    CPU (tests/test_torch_train.py)."""
+    cfg = bmshj2018.Config(num_filters=32, num_latents=32, num_hyperlatents=32)
+    tcfg = common.TrainConfig(learning_rate=1e-3)
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 128, 128, 3).astype(np.float32))
+    out = []
+    for device in ("cpu", cuda):
+        model = bmshj2018.BMSHJ2018Model(cfg, seed=3).to(device)
+        optimizer = common.make_optimizer(model, tcfg)
+        loss, _ = common.train_step(model, optimizer,
+                                    bmshj2018.make_loss_fn(model, training=False),
+                                    x.to(device), None, common.lr_schedule(tcfg))
+        out.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = out
+    np.testing.assert_allclose(loss_gpu, loss_cpu, rtol=1e-4)
+    for n in g_cpu:
+        torch.testing.assert_close(g_gpu[n], g_cpu[n], rtol=1e-3,
+                                   atol=1e-3 * g_cpu[n].abs().max().item(), msg=n)
+
+
+def test_train_step_launches_k1_six_times(cuda):
+    """One training step (noise from a card generator) launches K1 once per
+    GDN layer, in the forward only, and no rANS kernel."""
+    cfg = bmshj2018.Config(num_filters=64, num_latents=64, num_hyperlatents=32)
+    tcfg = common.TrainConfig()
+    model = bmshj2018.BMSHJ2018Model(cfg).to(cuda)
+    optimizer = common.make_optimizer(model, tcfg)
+    x = torch.rand(2, 128, 128, 3, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(0)
+    counts = (fused_gdn.launches, rans.rans_encode.launches, rans.rans_decode.launches)
+    loss, _ = common.train_step(model, optimizer, bmshj2018.make_loss_fn(model), x, gen,
+                                common.lr_schedule(tcfg))
+    torch.cuda.synchronize()
+    assert np.isfinite(loss.item())
+    assert (fused_gdn.launches - counts[0], rans.rans_encode.launches - counts[1],
+            rans.rans_decode.launches - counts[2]) == (6, 0, 0)

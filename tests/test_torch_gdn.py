@@ -1,10 +1,13 @@
 """The port's fused GDN (K1's plain twin and the GDN module) against the JAX
 package: the Pallas kernel in interpret mode, the lax GDN path and the flax
-module. The CUDA kernel itself runs only on the card
-(tests/test_torch_cuda.py); its 3xTF32 arithmetic is emulated here."""
+module; K1's autograd Function (forward by the twin here, backward in plain
+ops) against gradcheck and jax.grad. The CUDA kernel itself runs only on
+the card (tests/test_torch_cuda.py); its 3xTF32 arithmetic is emulated
+here."""
 
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +18,7 @@ from compression_tpu.layers.pallas.gdn_kernel import fused_gdn as jax_fused_gdn
 from compression_tpu_torch import convert
 from compression_tpu_torch.layers import GDN, fused_gdn, fused_gdn_reference
 from compression_tpu_torch.layers import gdn_kernel, parameters
+from compression_tpu_torch.layers.gdn_kernel import FusedGDN, gdn_autograd
 
 torch.set_num_threads(1)
 
@@ -107,6 +111,76 @@ def test_plain_exponents_take_torch_ops():
         gamma = parameters.nonneg_apply(mod.gamma, 0.0)
         want = x / (torch.abs(x) @ gamma + beta)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# -- K1 under autograd --------------------------------------------------------
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", [(2, 3, 5), (7,)])
+def test_function_gradcheck_float64(shape, inverse):
+    """The Function's backward (plain ops) against finite differences of its
+    forward, in float64, for x, beta and gamma."""
+    rng = np.random.RandomState(len(shape) + 3 * inverse)
+    c = 6
+    x = torch.from_numpy(rng.randn(*shape, c)).requires_grad_()
+    beta = torch.from_numpy(rng.uniform(0.5, 2.0, c)).requires_grad_()
+    gamma = torch.from_numpy(rng.uniform(0, 0.1, (c, c)) + 0.05 * np.eye(c))
+    gamma.requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda *a: FusedGDN.apply(*a, inverse), (x, beta, gamma))
+
+
+@pytest.mark.parametrize("c", [32, 192])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_module_gradients_match_jax_grad(c, inverse):
+    """Gradients of a scalar of the port's GDN (through the Function and
+    the sqrt reparameterization) against jax.grad of the flax GDN's lax
+    path, for x and the raw beta and gamma, in float32. Tolerance: 1e-4
+    relative to each gradient's largest entry (fp32 sums of C terms in
+    another order)."""
+    rng = np.random.RandomState(c + inverse)
+    x = rng.randn(2, 5, 7, c).astype(np.float32)
+    w = rng.randn(2, 5, 7, c).astype(np.float32)
+    beta_raw = rng.uniform(0.3, 1.5, c).astype(np.float32)
+    gamma_raw = rng.uniform(0.0, 0.4 / np.sqrt(c), (c, c)).astype(np.float32)
+    flax_mod = JaxGDN(inverse=inverse)
+
+    def jax_loss(params, x):
+        return jnp.sum(flax_mod.apply(params, x) * w)
+
+    params = {"params": {"beta": jnp.asarray(beta_raw), "gamma": jnp.asarray(gamma_raw)}}
+    g_params, g_x = jax.grad(jax_loss, argnums=(0, 1))(params, jnp.asarray(x))
+    mod = GDN(c, inverse=inverse)
+    mod.load_state_dict({"beta": torch.from_numpy(beta_raw),
+                         "gamma": torch.from_numpy(gamma_raw)})
+    xt = torch.from_numpy(x).requires_grad_()
+    torch.sum(mod(xt) * torch.from_numpy(w)).backward()
+    for got, want in ((xt.grad, g_x), (mod.beta.grad, g_params["params"]["beta"]),
+                      (mod.gamma.grad, g_params["params"]["gamma"])):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want).max())
+
+
+def test_function_takes_channels_last_views_and_counts_nothing_on_cpu():
+    """A channels_last NCHW tensor seen as NHWC (what SignalConv2D hands
+    GDN) goes through the Function; gradients equal autograd through the
+    twin, and the CPU run launches no kernel."""
+    gen = torch.Generator().manual_seed(0)
+    xc = torch.randn(2, 16, 6, 5, generator=gen).to(memory_format=torch.channels_last)
+    beta = torch.rand(16, generator=gen) + 0.5
+    gamma = torch.rand(16, 16, generator=gen) * 0.1
+    before = fused_gdn.launches
+    grads = []
+    for fn in (gdn_autograd, fused_gdn_reference):
+        x = xc.permute(0, 2, 3, 1).detach().requires_grad_()
+        b, g = beta.clone().requires_grad_(), gamma.clone().requires_grad_()
+        (fn(x, b, g, True) ** 2).sum().backward()
+        grads.append((x.grad, b.grad, g.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert fused_gdn.launches == before
 
 
 # -- K1's arithmetic on the card: 3xTF32 ------------------------------------
