@@ -1,5 +1,6 @@
 """On-card smoke run of the PyTorch/CUDA port: bmshj2018 at full width, with
-the host coder and with the device (rANS) coder.
+the host coder and with the device (rANS) coder, its training, and the
+other families at full width (bls2017, bmshj2018-factorized, mbt2018-mean).
 
     python3 chip_smoke.py [--batches N] [--reps N]
 
@@ -34,7 +35,8 @@ of a checkout. Phases, each fatal on failure:
    a reconstruction bit-equal to the host coder's, byte-identical
    re-compression, batch-1 decode equal to the batch-8 decode, and each y
    stream within 1.1x the host coder's y string + 4K + 16 bytes;
-6. throughput: compress_iter / decompress_iter with each coder;
+6. throughput: compress_iter / decompress_iter with each coder (8 batches
+   of 8 by default);
 7. profile: device time by kernel, and the device's idle share, over one
    compress + decompress and over the pipelined iterators (torch.profiler),
    with each coder; K3 and K2 inside the device codec next to their
@@ -64,17 +66,40 @@ of a checkout. Phases, each fatal on failure:
    h. steps/s and img/s of train_model over 50 steps after 5 warm-up
       steps, and a profile of 10 steps: device busy time, idle share, and
       device ms by kind (convolutions forward and backward, K1, the GDN
-      backward's ops, Adam, other).
+      backward's ops, Adam, other);
+9. factorized-prior codecs: bls2017 at 128 filters and bmshj2018-factorized
+   at 192/192, each trained 100 steps from its seeded init on one fixed
+   batch (the loss must fall), then compress and decompress of 8 structured
+   768x512 images one by one: K1 launches over exactly one round trip (4 and
+   6), 3-field blobs, byte-identical re-compression, PSNR and bpp, K1 against
+   its twin on the round trip's own GDN inputs, a 96x130 input within one
+   level of the CPU path; and an 8-filter bls2017's round trip (K1 at C = 8,
+   padded to 32) against the CPU;
+10. mbt2018-mean at 192/320/192: a. 200 steps of train_model from the seed
+    on fresh synthetic crops (every loss finite, the loss falling; steps/s,
+    img/s), the quantization-offset root-find's time and host syncs, and the
+    launches of one training step (K1 6, K3 0, K2 0); b. a quantized step of
+    a C = 32 model on the card against the CPU (8b's tolerances); c. the codec
+    over 8 structured 768x512 images with each coder (launches K1 6 host; K1
+    6, K3 2, K2 1 on chip device; 5-field blobs with K=128, reconstruction
+    equal to the host coder's, byte-identical re-compression, batch-1 decode
+    equal to the batch-8 decode); d. K3 and K2 against their twins on its
+    symbols and rows (N=491,520, T=3,840), with times, bounds and serial
+    floors; e. compress_iter / decompress_iter throughput with each coder;
+    f. a profile of one round trip with each coder.
 
-Then one JSON line with every kernel's numbers and the training numbers,
-the card line, and the last line ``{"ok": true, "device": {...}}``.
+Then one JSON line with every kernel's numbers (and its launches on every
+path), the training numbers and the families' numbers, the card line, and
+the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures as cf
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import pathlib
@@ -122,7 +147,7 @@ RANS_DEC_CHAIN_CYCLES = 14 * 4 + 4 * 30 + 20 + 30
 TRAIN_BATCH, TRAIN_PATCH = 8, 256
 TRAIN_GDN_TOL = 1e-4  # K1's Function against the twin's autograd (8a)
 TRAIN_CPU_TOL = 1e-3  # card against CPU gradients, of each one's largest entry (8b)
-DEVICE = "cuda"  # phase 8's device (a CPU rehearsal of its control flow sets "cpu")
+DEVICE = "cuda"  # phases 8-10's device (a CPU rehearsal of their control flow sets "cpu")
 
 
 def sync() -> None:
@@ -151,16 +176,22 @@ def card_line() -> str:
     return out[0]
 
 
-def structured_image(h: int, w: int) -> np.ndarray:
-    """Gradients + texture + edges + mild noise (bench.py's generator)."""
+def structured_image(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """Gradients + texture + edges + mild noise (bench.py's generator); the
+    noise drawn from ``seed``."""
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     image = np.stack(
         [xx / w * 255, yy / h * 255,
          (np.sin(xx / 17) * np.cos(yy / 23) * 0.5 + 0.5) * 255], -1)
     image[128:256, 192:448] = [255, 64, 32]
     return np.clip(
-        image + np.random.RandomState(0).randn(h, w, 3) * 4, 0, 255
+        image + np.random.RandomState(seed).randn(h, w, 3) * 4, 0, 255
     ).astype(np.uint8)
+
+
+def structured_images() -> np.ndarray:
+    """BATCH structured images, each with its own noise (phases 9-10)."""
+    return np.stack([structured_image(HEIGHT, WIDTH, seed) for seed in range(BATCH)])
 
 
 def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -363,17 +394,22 @@ def check_gdn_wide_range(model) -> float:
     return worst
 
 
+def count_escapes(values, rows, tables) -> int:
+    """Elements coded as escapes (outside their row's symbol range)."""
+    t = tables.on(values.device)
+    r = rows.long()
+    s = values.long() - t.cdf_offset.long()[r]
+    return int((~((s >= 0) & (s < t.escape.long()[r]))).sum())
+
+
 def rans_bound_ms(values, rows, word_count, tables, decode: bool) -> tuple:
     """(bound ms, "bytes" or "operations") of one rANS call on this data:
     each input read once and each output written once over the HBM rate
     (the stream's words as this run's streams need them, the tables once),
     against its integer operations over the int32 rate."""
-    t = tables.on(values.device)
     B, N = values.shape
-    r = rows.long()
-    s = values.long() - t.cdf_offset.long()[r]
-    escapes = int((~((s >= 0) & (s < t.escape.long()[r]))).sum())
-    table_bytes = t.table_bytes if decode else 4 * t.bucket_words  # K3: row info, f|c
+    escapes = count_escapes(values, rows, tables)
+    table_bytes = tables.table_bytes if decode else 4 * tables.bucket_words  # K3: row info, f|c
     nbytes = (4 * B * N + rows.element_size() * B * N + 2 * word_count
               + table_bytes + (B if decode else 5 * B))
     ops = (RANS_DEC_OPS if decode else RANS_ENC_OPS) * B * N + RANS_ESC_OPS * escapes
@@ -438,29 +474,29 @@ def check_rans_synthetic() -> None:
         f"({int(want[1].sum())} words)")
 
 
-def phase_rans_kernels(codec, images, reps: int) -> dict:
-    """K3 and K2 against their twins at the main path's shapes, on the real
-    symbols and rows of the 8 images; timed in turns with the twins."""
+def phase_rans_kernels(codec, images, reps: int, main_path: bool = True) -> dict:
+    """K3 and K2 against their twins at a codec's shapes, on the real
+    symbols and rows of the 8 images (``round(y - mu)`` for a mean-scale
+    codec); timed in turns with the twins. On the main path also a corrupt
+    stream, the synthetic case and K2's lookup designs."""
     from compression_tpu_torch.codec import rans
-    from compression_tpu_torch.models.device_coding import fetch_streams, pad_words, rans_for
-    from compression_tpu_torch.util.image import pad_to_multiple_np
+    from compression_tpu_torch.models.device_coding import (
+        encode_symbols, fetch_streams, pad_words, rans_for)
 
-    x, _ = pad_to_multiple_np(images, codec.cfg.downscale)
     with codec._on_device():
-        y_sym, _, z_hat = codec._front(codec._to_device(x))
-        rows = codec._rows(z_hat).reshape(BATCH, -1)
-        values = y_sym.reshape(BATCH, -1)
+        values, _, rows, _ = encode_symbols(codec, images)
+        values, rows = values.reshape(BATCH, -1), rows.reshape(BATCH, -1)
     torch.cuda.synchronize()
     N = values.shape[1]
     _enc, _dec, K, cap = rans_for(codec, N)
     tables = codec._rans_tables
-    want_n = HEIGHT * WIDTH // 256 * codec.cfg.num_latents  # 294,912 at 768x512
+    want_n = HEIGHT * WIDTH // 256 * codec.cfg.num_latents  # 294,912 / 491,520 at 768x512
     if (N, K, cap) != (want_n, 128, 3 * want_n + 2 * 128 + 64):
-        raise AssertionError(f"unexpected main-path shapes N={N} K={K} cap={cap}")
+        raise AssertionError(f"unexpected shapes N={N} K={K} cap={cap}")
     variant = rans.decode_variant(tables)
     log(f"  K2 variant: {variant} (table blob {tables.table_bytes} bytes in shared memory)")
     if variant != "on_chip":
-        raise AssertionError("the main path's tables do not fit K2's shared memory")
+        raise AssertionError("the codec's tables do not fit K2's shared memory")
 
     with torch.inference_mode():
         got = rans.rans_encode(tables, values, rows, K, cap)
@@ -470,7 +506,7 @@ def phase_rans_kernels(codec, images, reps: int) -> dict:
             if not torch.equal(g, w):
                 raise AssertionError(f"K3: {name} differ from the twin")
         if bool(got[2].any()):
-            raise AssertionError("K3: the main path's streams overflowed")
+            raise AssertionError("K3: the streams overflowed")
         lengths = got[1].cpu().numpy()
         # K2's input as the decoder builds it: the blobs' words, padded.
         stream = torch.from_numpy(pad_words([
@@ -483,9 +519,12 @@ def phase_rans_kernels(codec, images, reps: int) -> dict:
             raise AssertionError("K2: decode differs from the twin")
         if not (bool(ok.all()) and torch.equal(out, values)):
             raise AssertionError("K2: decode does not give back the symbols")
-        log(f"  main path: B={BATCH} N={N} K={K} cap={cap}, stream {stream.shape[1]} "
-            f"words wide; y words per image {lengths.min()}..{lengths.max()}; "
-            f"K3 == twin (words, lengths, overflow), K2 == twin == symbols")
+        escapes = count_escapes(values, rows, tables)
+        log(f"  B={BATCH} N={N} K={K} T={-(-N // K)} cap={cap} (B*cap {BATCH * cap} words), "
+            f"stream {stream.shape[1]} words wide; y words per image "
+            f"{lengths.min()}..{lengths.max()}; {escapes} escapes "
+            f"({100 * escapes / values.numel():.3f}%); K3 == twin (words, lengths, "
+            f"overflow), K2 == twin == symbols")
 
         bad = stream.cpu()  # (no uint16 xor on CUDA)
         bad[3, int(lengths[3]) // 2] ^= 0x5A5A
@@ -499,7 +538,8 @@ def phase_rans_kernels(codec, images, reps: int) -> dict:
             raise AssertionError(f"K2: corrupt stream gave ok {c_ok.tolist()}")
         log("  corrupt stream (image 3, one word flipped): ok = "
             f"{c_ok.tolist()} from kernel and twin alike")
-        check_rans_synthetic()
+        if main_path:
+            check_rans_synthetic()
 
         word_count = int(lengths.sum())
         T = -(-N // K)
@@ -526,8 +566,9 @@ def phase_rans_kernels(codec, images, reps: int) -> dict:
                 f"{1e3 * times['ms'] / T:.3f} us per step, {times['ms'] * 1e-3 * clock / T:.0f} "
                 f"cycles (kernel runs {[round(v, 4) for v in runs['ms']]})")
             results[name] = dict(max_abs_err=0.0, bound_ms=bound, bound_by=bound_by,
-                                 **times)
-        check_decode_designs(codec, tables, stream, rows, values, K, reps)
+                                 floor_ms=floor, steps=T, **times)
+        if main_path:
+            check_decode_designs(codec, tables, stream, rows, values, K, reps)
     return results
 
 
@@ -555,39 +596,58 @@ def check_decode_designs(codec, tables, stream, rows, values, K, reps) -> None:
         f"{label} {ms:.4f} ms" for label, ms in times.items()))
 
 
-def check_small_against_cpu(model) -> None:
-    """A small input through the card's codec and the CPU codec (same
-    weights, same tables): latents agree to 1e-4, reconstructions to one
-    level."""
-    from compression_tpu_torch.models import bmshj2018
+def check_small_against_cpu(module, model, hw=(128, 192)) -> int:
+    """A small input through the card's codec and the CPU codec of the
+    family ``module`` (same weights, same tables): latents agree to 1e-4,
+    reconstructions to one level. Returns the K1 launches of the card's
+    round trip."""
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
 
-    images = np.stack([structured_image(HEIGHT, WIDTH)[:128, :192]] * 2)
-    cpu_model = bmshj2018.BMSHJ2018Model(model.config)
+    images = np.stack([structured_image(HEIGHT, WIDTH)[: hw[0], : hw[1]]] * 2)
+    cpu_model = type(model)(model.config)
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    cpu = bmshj2018.Codec(cpu_model, device="cpu")
-    gpu = bmshj2018.Codec(model, device="cuda",
-                          tables={"side": cpu.side_em.tables, "main": cpu.em.tables})
+    cpu = module.Codec(cpu_model, device="cpu")
+    batched = hasattr(cpu, "side_em")  # the hyperprior codecs' batch API
+    tables = {"side": cpu.side_em.tables, "main": cpu.em.tables} if batched else cpu.em.tables
+    gpu = module.Codec(model, device=DEVICE, tables=tables)
     x = torch.from_numpy(images).float() / 255.0
     with torch.inference_mode():
-        y_cpu, _ = cpu.model.encode_latents(x)
-        y_gpu, _ = gpu.model.encode_latents(x.cuda())
+        y_cpu = cpu.model.analysis(x)
+        y_gpu = gpu.model.analysis(x.to(DEVICE))
     torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
-    out_gpu = gpu.decompress_batch(gpu.compress_batch(images))
-    out_cpu = cpu.decompress_batch(cpu.compress_batch(images))
+
+    def round_trip(codec):
+        if batched:
+            return codec.decompress_batch(codec.compress_batch(images))
+        return np.stack([codec.decompress(codec.compress(im)) for im in images[:1]])
+
+    round_trip(gpu)  # warm-up
+    fused_gdn.launches = 0
+    out_gpu = round_trip(gpu)
+    launches = fused_gdn.launches
+    out_cpu = round_trip(cpu)
     diff = np.abs(out_gpu.astype(np.int16) - out_cpu.astype(np.int16))
-    log(f"  small input vs CPU path: max |diff| {diff.max()} levels, "
-        f"{100 * np.mean(diff == 0):.3f}% equal")
+    log(f"  {hw[0]}x{hw[1]} input vs CPU path ({type(model).__name__}, "
+        f"{model.config.num_filters} filters): max |diff| {diff.max()} levels, "
+        f"{100 * np.mean(diff == 0):.3f}% equal; K1 launches {launches}")
     if diff.max() > 1 or np.mean(diff == 0) < 0.99:
         raise AssertionError("card and CPU reconstructions disagree")
+    return launches
 
 
-def phase_codec(codec, images) -> tuple:
+def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0) -> tuple:
+    """A hyperprior codec's host-coded path: launches over exactly
+    compress_batch + decompress_batch (6 for K1), byte-identical
+    re-compression, batch-1 decode equal to the batch-8 decode, PSNR and
+    bpp (PSNR held to ``min_psnr`` where the weights are trained ones), and
+    a small input against the CPU path of ``module``. Returns (blobs,
+    reconstruction, launches)."""
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn
     from compression_tpu_torch.util.image import psnr_np
 
     codec.compress_batch(images[:1])  # warm-up: cuDNN handles, kernel load
 
-    # The main path's run: the counts cover exactly compress + decompress.
+    # The path's run: the counts cover exactly compress + decompress.
     fused_gdn.launches = 0
     t0 = time.perf_counter()
     blobs = codec.compress_batch(images)
@@ -595,7 +655,7 @@ def phase_codec(codec, images) -> tuple:
     out = codec.decompress_batch(blobs)
     t2 = time.perf_counter()
     launches = {"gdn": fused_gdn.launches}
-    log(f"codec: batch {BATCH} {HEIGHT}x{WIDTH}: compress {1e3 * (t1 - t0):.1f} ms, "
+    log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress {1e3 * (t1 - t0):.1f} ms, "
         f"decompress {1e3 * (t2 - t1):.1f} ms; K1 launches {launches['gdn']}")
     if launches["gdn"] != 6:
         raise AssertionError(f"expected 6 K1 launches, saw {launches['gdn']}")
@@ -609,17 +669,20 @@ def phase_codec(codec, images) -> tuple:
         raise AssertionError("batch-1 decode differs from the batch-8 decode")
     psnr = float(np.mean(psnr_np(out, images)))
     bpp = 8.0 * sum(len(b) for b in blobs) / (BATCH * HEIGHT * WIDTH)
-    log(f"  re-compress byte-identical; batch-1 decode == batch-8 row 0; "
+    log(f"  4-field blobs; re-compress byte-identical; batch-1 decode == batch-8 row 0; "
         f"PSNR {psnr:.3f} dB, {bpp:.4f} bpp")
-    if not (psnr > 25.0 and 0.0 < bpp < 8.0):
-        raise AssertionError("implausible rate/distortion for the trained model")
-    check_small_against_cpu(codec.model)
-    return blobs, out
+    if not (np.isfinite(psnr) and 0.0 < bpp) or (
+            min_psnr is not None and not (psnr > min_psnr and bpp < 8.0)):
+        raise AssertionError("implausible rate/distortion")
+    check_small_against_cpu(module, codec.model)
+    return blobs, out, launches
 
 
-def phase_codec_device(codec, images, host_blobs, host_out) -> dict:
-    """The device-coded main path: launches over exactly compress_batch +
-    decompress_batch, and its outputs against the host coder's."""
+def phase_codec_device(codec, images, host_blobs, host_out,
+                       label: str = "codec (device coder)") -> dict:
+    """A device-coded path: launches over exactly compress_batch +
+    decompress_batch, and its outputs against the host coder's; each y
+    stream within 1.1x the host coder's y string plus the lane states."""
     from compression_tpu_torch.codec import rans
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn
     from compression_tpu_torch.util import PackedTensors
@@ -635,7 +698,7 @@ def phase_codec_device(codec, images, host_blobs, host_out) -> dict:
     t2 = time.perf_counter()
     launches = {"rans_encode": rans.rans_encode.launches,
                 "rans_decode": rans.rans_decode.launches, "gdn": fused_gdn.launches}
-    log(f"codec (device coder): batch {BATCH} {HEIGHT}x{WIDTH}: compress "
+    log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress "
         f"{1e3 * (t1 - t0):.1f} ms, decompress {1e3 * (t2 - t1):.1f} ms; launches {launches}")
     if launches != {"rans_encode": 2, "rans_decode": 1, "gdn": 6}:
         raise AssertionError(f"expected K3 2 (fields, lanes), K2 1, K1 6 launches, "
@@ -709,7 +772,8 @@ def phase_profile(label: str, run, top: int = 0) -> dict:
     return per_kernel
 
 
-def phase_throughput(codec, images, batches: int, card: str, coder: str) -> None:
+def phase_throughput(codec, images, batches: int, card: str, coder: str,
+                     label: str = "throughput") -> dict:
     batch_list = [images] * batches
     list(codec.compress_iter(batch_list[:1], coder=coder))  # warm the pipeline
     codec.timer.reset()
@@ -722,10 +786,13 @@ def phase_throughput(codec, images, batches: int, card: str, coder: str) -> None
     if len(decoded) != batches or any(d.shape != images.shape for d in decoded):
         raise AssertionError("pipelined decode returned the wrong batches")
     n = batches * BATCH
-    log(f"throughput, {coder} coder ({card}): compress_iter {n / (t1 - t0):.3f} img/s, "
-        f"decompress_iter {n / (t2 - t1):.3f} img/s, round trip "
-        f"{n / (t2 - t0):.3f} img/s over {batches} batches of {BATCH}")
+    rates = {"compress_iter": n / (t1 - t0), "decompress_iter": n / (t2 - t1),
+             "round_trip": n / (t2 - t0)}
+    log(f"{label}, {coder} coder ({card}): compress_iter {rates['compress_iter']:.3f} img/s, "
+        f"decompress_iter {rates['decompress_iter']:.3f} img/s, round trip "
+        f"{rates['round_trip']:.3f} img/s over {batches} batches of {BATCH}")
     log(codec.timer.report())
+    return rates
 
 
 def train_gdn_shapes():
@@ -835,15 +902,14 @@ def train_batches(batch: int, seed: int = 0):
                                                   seed=seed))
 
 
-def check_step_against_cpu() -> float:
-    """8b: one quantized step of 2 crops, card against CPU."""
-    from compression_tpu_torch.models import bmshj2018
-
+def check_step_against_cpu(make_model, make_loss_fn, label: str) -> float:
+    """One quantized (training=False) step of 2 crops, card against CPU:
+    the loss and every gradient of ``make_model()``'s weights."""
     x = torch.from_numpy(next(train_batches(2)))
     out = {}
     for device in (DEVICE, "cpu"):
-        model = ckpt_model().to(device)
-        loss, metrics = bmshj2018.make_loss_fn(model, training=False)(x.to(device))
+        model = make_model().to(device)
+        loss, metrics = make_loss_fn(model, training=False)(x.to(device))
         loss.backward()
         out[device] = (loss.item(), {k: v.item() for k, v in metrics.items()},
                        {n: p.grad.cpu() for n, p in model.named_parameters()})
@@ -851,27 +917,27 @@ def check_step_against_cpu() -> float:
     np.testing.assert_allclose(loss_gpu, loss_cpu, rtol=1e-4)
     errs = {n: rel_err(g_gpu[n], g_cpu[n]) for n in g_cpu}
     worst = max(errs, key=errs.get)
-    log(f"  8b quantized step, 2 crops: loss card {loss_gpu:.6f} cpu {loss_cpu:.6f} "
+    log(f"  {label} quantized step, 2 crops: loss card {loss_gpu:.6f} cpu {loss_cpu:.6f} "
         f"(bpp {m_gpu['bpp']:.5f}/{m_cpu['bpp']:.5f}, mse {m_gpu['mse']:.4f}/{m_cpu['mse']:.4f}); "
         f"{len(errs)} gradients, worst {errs[worst]:.2e} of its largest entry ({worst}), "
         f"median {float(np.median(list(errs.values()))):.2e}")
     bad = {n: e for n, e in errs.items() if e > TRAIN_CPU_TOL}
     if bad:
-        raise AssertionError(f"8b: gradients off the CPU's by more than {TRAIN_CPU_TOL}: {bad}")
+        raise AssertionError(f"{label}: gradients off the CPU's by more than {TRAIN_CPU_TOL}: {bad}")
     return errs[worst]
 
 
-def count_step_launches() -> dict:
-    """8c: the training main path's run: one train_step of a batch of 8, the
-    counts set to 0 just before and read just after."""
+def count_step_launches(model, make_loss_fn, label: str) -> dict:
+    """A training main path's run: one train_step of a batch of 8 of
+    ``model``, the counts set to 0 just before and read just after."""
     from compression_tpu_torch.codec import rans
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn
-    from compression_tpu_torch.models import bmshj2018, common
+    from compression_tpu_torch.models import common
 
     tcfg = common.TrainConfig()
-    model = ckpt_model().to(DEVICE)
+    model = model.to(DEVICE)
     optimizer = common.make_optimizer(model, tcfg)
-    loss_fn = bmshj2018.make_loss_fn(model)
+    loss_fn = make_loss_fn(model)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     x = torch.from_numpy(next(train_batches(TRAIN_BATCH))).to(DEVICE)
     common.train_step(model, optimizer, loss_fn, x, gen, common.lr_schedule(tcfg))  # warm-up
@@ -881,10 +947,10 @@ def count_step_launches() -> dict:
     sync()
     launches = {"gdn": fused_gdn.launches, "rans_encode": rans.rans_encode.launches,
                 "rans_decode": rans.rans_decode.launches}
-    log(f"  8c one training step of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}: launches "
+    log(f"  {label} one training step of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}: launches "
         f"{launches} (loss {loss.item():.4f})")
     if launches != {"gdn": 6, "rans_encode": 0, "rans_decode": 0}:
-        raise AssertionError(f"8c: expected K1 6, K3 0, K2 0 launches, saw {launches}")
+        raise AssertionError(f"{label}: expected K1 6, K3 0, K2 0 launches, saw {launches}")
     return launches
 
 
@@ -905,25 +971,31 @@ def train_from_checkpoint(steps: int = 50) -> None:
         for k in (1, 10, steps)))
 
 
-def train_from_scratch(steps: int = 100) -> None:
-    """8e: the seeded init trained on one fixed batch."""
-    from compression_tpu_torch.models import bmshj2018, common
+def train_fixed_batch(model, loss_fn, steps: int, label: str) -> dict:
+    """``steps`` training steps of ``model`` (seeded init) on one fixed
+    batch of TRAIN_BATCH crops: every loss finite, and the mean of the last
+    10 losses below the mean of the first 10."""
+    from compression_tpu_torch.models import common
 
     tcfg = common.TrainConfig()
-    model = bmshj2018.BMSHJ2018Model(bmshj2018.Config(), seed=0).to(DEVICE)
+    model.to(DEVICE).train()
     optimizer = common.make_optimizer(model, tcfg)
-    loss_fn = bmshj2018.make_loss_fn(model)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     x = torch.from_numpy(next(train_batches(TRAIN_BATCH))).to(DEVICE)
     schedule = common.lr_schedule(tcfg)
+    sync()
+    t0 = time.perf_counter()
     losses = torch.stack([common.train_step(model, optimizer, loss_fn, x, gen, schedule)[0]
                           .detach() for _ in range(steps)]).cpu().numpy()
+    seconds = time.perf_counter() - t0
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
-    log(f"  8e {steps} steps from the seeded init on one batch: mean loss of the first 10 "
-        f"{first:.4f}, of the last 10 {last:.4f} (step 1 {losses[0]:.4f}, step {steps} "
-        f"{losses[-1]:.4f})")
+    log(f"  {label}: {steps} steps from the seeded init on one batch of {TRAIN_BATCH}x"
+        f"{TRAIN_PATCH}x{TRAIN_PATCH}: mean loss of the first 10 {first:.4f}, of the last "
+        f"10 {last:.4f} (step 1 {losses[0]:.4f}, step {steps} {losses[-1]:.4f}); "
+        f"{1e3 * seconds / steps:.2f} ms a step")
     if not (np.isfinite(losses).all() and last < first):
-        raise AssertionError("8e: the loss did not fall")
+        raise AssertionError(f"{label}: the loss did not fall")
+    return dict(first=first, last=last, step_ms=1e3 * seconds / steps)
 
 
 def check_resume(k: int = 3) -> None:
@@ -1106,21 +1178,250 @@ def time_training(card: str) -> dict:
 
 
 def phase_training(model, card: str, reps: int) -> dict:
+    from compression_tpu_torch.models import bmshj2018
+
     log("training (phase 8):")
     gdn_bwd = check_gdn_backward(model, reps)
-    cpu_err = check_step_against_cpu()
-    launches = count_step_launches()
+    cpu_err = check_step_against_cpu(ckpt_model, bmshj2018.make_loss_fn, "8b")
+    launches = count_step_launches(ckpt_model(), bmshj2018.make_loss_fn, "8c")
     train_from_checkpoint()
-    train_from_scratch()
+    scratch = bmshj2018.BMSHJ2018Model(bmshj2018.Config(), seed=0)
+    train_fixed_batch(scratch, bmshj2018.make_loss_fn(scratch), 100, "8e")
     check_resume()
     train_msssim()
     timing = time_training(card)
     return dict(launches=launches, gdn_backward=gdn_bwd, cpu_max_rel_err=cpu_err, **timing)
 
 
+# -- phases 9-10: the other families at full width -----------------------------
+#
+# The JAX package's registry (compression_tpu/cli/registry.py) serves them at
+# these widths; no trained checkpoint of theirs is in the repository, so each
+# trains from its seeded init on crop_dataset's synthetic fallback first.
+
+FAMILY_STEPS = 100  # phase 9: steps from the seed on one fixed batch
+MBT_STEPS = 200     # phase 10: steps of train_model on fresh synthetic crops
+
+
+def factorized_configs() -> dict:
+    """Phase 9's models: bls2017 at 128 filters, bmshj2018-factorized at
+    192 filters and 192 latents (registry.py:57, 137)."""
+    from compression_tpu_torch.models import bls2017
+
+    return {"bls2017": bls2017.Config(),
+            "bmshj2018-factorized": bls2017.Config(
+                num_filters=192, num_latents=192, arch="bmshj2018",
+                model_name="bmshj2018-factorized")}
+
+
+def mbt2018_config():
+    """Phase 10's model: mbt2018-mean at 192/320/192 (registry.py:97)."""
+    from compression_tpu_torch.models import mbt2018
+
+    return mbt2018.Config()
+
+
+def check_k1_on_path(model, run, label: str) -> float:
+    """K1 against its twin on exactly the inputs ``model``'s GDN layers get
+    in ``run()`` (captured by forward hooks), at the kernel tolerance."""
+    from compression_tpu_torch.layers import GDN, parameters
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_reference
+
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: seen.append((mod, args[0].detach().contiguous())))
+        for m in model.modules() if isinstance(m, GDN)]
+    try:
+        run()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    worst = 0.0
+    with torch.inference_mode():
+        for mod, x in seen:
+            beta = parameters.nonneg_apply(mod.beta, mod.beta_min)
+            gamma = parameters.nonneg_apply(mod.gamma, 0.0)
+            got = fused_gdn(x, beta, gamma, mod.inverse)
+            want = fused_gdn_reference(x, beta, gamma, mod.inverse)
+            sync()
+            worst = max(worst, (got - want).abs().max().item())
+            torch.testing.assert_close(got, want, rtol=GDN_TOL, atol=GDN_TOL)
+    shapes = ", ".join(f"{'IGDN' if mod.inverse else 'GDN'} {x.numel() // x.shape[-1]}x"
+                       f"{x.shape[-1]}" for mod, x in seen)
+    log(f"  {label}: K1 == twin on the {len(seen)} GDN inputs of one round trip "
+        f"(rows x C: {shapes}); max_abs_err {worst:.3e}")
+    return worst
+
+
+def phase_factorized(card: str) -> dict:
+    """Phase 9: bls2017 and bmshj2018-factorized at full width: training
+    from the seed, then the one-image codec over the 8 images; and an
+    8-filter model's round trip (K1 at C = 8, padded to 32)."""
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.models import bls2017
+    from compression_tpu_torch.util import PackedTensors
+    from compression_tpu_torch.util.image import psnr_np
+
+    log(f"factorized-prior codecs (phase 9; {card}):")
+    images = structured_images()
+    results = {}
+    for name, cfg in factorized_configs().items():
+        model = bls2017.BLS2017Model(cfg, seed=0)
+        train = train_fixed_batch(model, bls2017.make_loss_fn(model), FAMILY_STEPS,
+                                  f"9 {name}")
+        codec = bls2017.Codec(model, device=DEVICE)
+        codec.decompress(codec.compress(images[0]))  # warm-up
+        # The path's run: the counts cover exactly one compress + decompress.
+        fused_gdn.launches = 0
+        blob = codec.compress(images[0])
+        first = codec.decompress(blob)
+        launches = {"gdn": fused_gdn.launches}
+        want = 4 if cfg.arch == "bls2017" else 6
+        if launches["gdn"] != want:
+            raise AssertionError(f"9 {name}: expected {want} K1 launches, saw {launches}")
+        t0 = time.perf_counter()
+        blobs = [codec.compress(image) for image in images]
+        t1 = time.perf_counter()
+        out = np.stack([codec.decompress(b) for b in blobs])
+        t2 = time.perf_counter()
+        if blobs[0] != blob or not np.array_equal(out[0], first):
+            raise AssertionError(f"9 {name}: a second round trip differs from the first")
+        if [codec.compress(image) for image in images] != blobs:
+            raise AssertionError(f"9 {name}: re-compression is not byte-identical")
+        if out.shape != images.shape or any(
+                len([k for k, *_ in PackedTensors(b).describe() if k != "MD"]) != 3
+                for b in blobs):
+            raise AssertionError(f"9 {name}: bad output or blob format")
+        psnr = float(np.mean(psnr_np(out, images)))
+        bpp = 8.0 * sum(len(b) for b in blobs) / (BATCH * HEIGHT * WIDTH)
+        rates = {"compress_img_per_s": BATCH / (t1 - t0),
+                 "decompress_img_per_s": BATCH / (t2 - t1)}
+        log(f"  9 {name} codec ({card}), {BATCH} images of {HEIGHT}x{WIDTH} one by one: "
+            f"K1 launches {launches['gdn']} a round trip; 3-field blobs, re-compress "
+            f"byte-identical; PSNR {psnr:.3f} dB, {bpp:.4f} bpp; compress "
+            f"{rates['compress_img_per_s']:.3f} img/s, decompress "
+            f"{rates['decompress_img_per_s']:.3f} img/s")
+        if not (np.isfinite(psnr) and 0.0 < bpp):
+            raise AssertionError(f"9 {name}: implausible rate/distortion")
+        k1_err = check_k1_on_path(codec.model, lambda: codec.decompress(codec.compress(images[0])),
+                                  f"9 {name}")
+        check_small_against_cpu(bls2017, codec.model, hw=(96, 130))
+        results[name] = dict(launches=launches, psnr=psnr, bpp=bpp, k1_max_abs_err=k1_err,
+                             train=train, **rates)
+        del codec, model
+    # Any GDN width through K1 end to end: an 8-filter model's round trip.
+    tiny = bls2017.BLS2017Model(bls2017.Config(num_filters=8), seed=0)
+    tiny_launches = check_small_against_cpu(bls2017, tiny, hw=(96, 130))
+    if tiny_launches != 4:
+        raise AssertionError(f"9 8 filters: expected 4 K1 launches, saw {tiny_launches}")
+    codec = bls2017.Codec(tiny, device=DEVICE)
+    image = structured_image(HEIGHT, WIDTH)[:96, :130]
+    results["bls2017 8 filters"] = dict(
+        launches={"gdn": tiny_launches},
+        k1_max_abs_err=check_k1_on_path(tiny, lambda: codec.decompress(codec.compress(image)),
+                                        "9 bls2017 8 filters"))
+    return results
+
+
+def time_quantization_offset(model, reps: int = 20) -> dict:
+    """10a: the quantization-offset root-find ``side_em.quantize(z)`` runs
+    every training step (plain torch ops on the prior's device): the host
+    syncs it makes, its wall time, and its offsets against the same
+    root-find on the CPU."""
+    import warnings
+
+    from compression_tpu_torch.entropy_models import ContinuousBatchedEntropyModel
+
+    side_em = ContinuousBatchedEntropyModel(model.hyperprior(), coding_rank=3)
+    side_em.quantization_offset()
+    syncs = None
+    if DEVICE == "cuda":
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                side_em.quantization_offset()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        offset = side_em.quantization_offset()
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    cpu = ContinuousBatchedEntropyModel(model.hyperprior(device="cpu"), coding_rank=3)
+    diff = (offset.cpu() - cpu.quantization_offset()).abs().max().item()
+    log(f"  10a quantization offset (the root-find of side_em.quantize, "
+        f"{model.config.num_hyperlatents} channels): {ms:.3f} ms a call, {syncs} host syncs "
+        f"a call; offsets within {diff:.2e} of the CPU's")
+    return dict(ms=ms, syncs=syncs, max_abs_diff_vs_cpu=diff)
+
+
+def phase_mbt2018(card: str, reps: int, batches: int) -> dict:
+    """Phase 10: mbt2018-mean at full width: train_model from the seed, a
+    card-against-CPU step, the codec with both coders over the 8 images, K3
+    and K2 on its symbols and rows, throughput and a profile."""
+    from compression_tpu_torch.models import common, mbt2018
+
+    log(f"mbt2018-mean at full width (phase 10; {card}):")
+    cfg = mbt2018_config()
+    model = mbt2018.MBT2018Model(cfg, seed=0)
+    seen, marks = {}, {}
+
+    def hook(step, m):
+        seen[step] = m["loss"]  # read with .item(): synced each step
+        marks[step] = time.perf_counter()
+
+    with contextlib.redirect_stdout(io.StringIO()):  # its line a step
+        common.train_model(model, mbt2018.make_loss_fn(model),
+                           common.TrainConfig(steps=MBT_STEPS, log_every=1, seed=0),
+                           hooks=hook, device=DEVICE)
+    losses = np.array([seen[k] for k in sorted(seen)])
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    step_ms = 1e3 * (marks[MBT_STEPS] - marks[20]) / (MBT_STEPS - 20)
+    train = dict(first=first, last=last, step_ms=step_ms, steps_per_s=1e3 / step_ms,
+                 img_per_s=TRAIN_BATCH * 1e3 / step_ms)
+    log(f"  10a train_model, {MBT_STEPS} steps from the seed on fresh {TRAIN_BATCH}x"
+        f"{TRAIN_PATCH}x{TRAIN_PATCH} synthetic crops ({card}): mean loss of the first 10 "
+        f"{first:.4f}, of the last 10 {last:.4f} (step 1 {losses[0]:.4f}, step {MBT_STEPS} "
+        f"{losses[-1]:.4f}); {step_ms:.2f} ms a step, {train['steps_per_s']:.3f} steps/s, "
+        f"{train['img_per_s']:.2f} img/s over steps 21-{MBT_STEPS} (the hook reads every "
+        f"loss: one sync a step)")
+    if len(losses) != MBT_STEPS or not np.isfinite(losses).all() or not last < first:
+        raise AssertionError("10a: missing or non-finite losses, or the loss did not fall")
+    train["quantization_offset"] = time_quantization_offset(model)
+    train["launches"] = count_step_launches(mbt2018.MBT2018Model(cfg, seed=1),
+                                            mbt2018.make_loss_fn, "10a")
+    small = mbt2018.Config(num_filters=32, num_latents=32, num_hyperlatents=32)
+    train["cpu_max_rel_err"] = check_step_against_cpu(
+        lambda: mbt2018.MBT2018Model(small, seed=3), mbt2018.make_loss_fn, "10b C=32")
+
+    codec = mbt2018.Codec(model, device=DEVICE)
+    images = structured_images()
+    host_blobs, host_out, host_launches = phase_codec(
+        codec, images, mbt2018, label="10c mbt2018 codec", min_psnr=None)
+    launches = phase_codec_device(codec, images, host_blobs, host_out,
+                                  label="10c mbt2018 codec (device coder)")
+    k1_err = check_k1_on_path(
+        codec.model, lambda: codec.decompress_batch(codec.compress_batch(images, coder="device")),
+        "10c mbt2018")
+    log("10d K3/K2 on mbt2018's symbols and rows:")
+    rans_k = phase_rans_kernels(codec, images, reps, main_path=False)
+    rates = {coder: phase_throughput(codec, images, batches, card, coder,
+                                     label="10e mbt2018 throughput")
+             for coder in ("host", "device")}
+    for coder in ("host", "device"):
+        phase_profile(f"10f mbt2018, {coder} coder, compress_batch + decompress_batch of {BATCH}",
+                      lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)),
+                      top=10)
+    return dict(train=train, host_launches=host_launches, launches=launches,
+                k1_max_abs_err=k1_err, rans=rans_k, throughput=rates)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--batches", type=int, default=16)
+    parser.add_argument("--batches", type=int, default=8)
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1138,7 +1439,7 @@ def main() -> int:
     images = np.stack([structured_image(HEIGHT, WIDTH)] * BATCH)
     codec = bmshj2018.Codec(model, device="cuda")
     rans_k = phase_rans_kernels(codec, images, args.reps)
-    host_blobs, host_out = phase_codec(codec, images)
+    host_blobs, host_out, host_launches = phase_codec(codec, images, bmshj2018)
     launches = phase_codec_device(codec, images, host_blobs, host_out)
     for coder in ("host", "device"):
         phase_throughput(codec, images, args.batches, card, coder)
@@ -1164,6 +1465,19 @@ def main() -> int:
                           list(codec.compress_iter(batch_list, coder=coder)))))
     del codec
     training = phase_training(model, card, args.reps)
+    factorized = phase_factorized(card)
+    mbt = phase_mbt2018(card, args.reps, args.batches)
+
+    # Each kernel's launches on every path, each path counted on its own.
+    paths = {
+        "bmshj2018 codec, host coder": host_launches,
+        "bmshj2018 codec, device coder": launches,
+        "bmshj2018 train step": training["launches"],
+        **{f"{name} codec (one image)": r["launches"] for name, r in factorized.items()},
+        "mbt2018 codec, host coder": mbt["host_launches"],
+        "mbt2018 codec, device coder": mbt["launches"],
+        "mbt2018 train step": mbt["train"]["launches"],
+    }
 
     kernels = [{
         "name": "gdn",
@@ -1178,6 +1492,7 @@ def main() -> int:
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
         "train_launches": training["launches"]["gdn"],
+        "paths": {path: counts.get("gdn", 0) for path, counts in paths.items()},
     }]
     for name, replaces in (("rans_encode", "compression_tpu/codec/rans.py:178"),
                            ("rans_decode", "compression_tpu/codec/rans.py:257")):
@@ -1194,6 +1509,9 @@ def main() -> int:
             "bound_by": rans_k[name]["bound_by"],
             "library_ms": None,  # no single PyTorch call computes rANS
             "train_launches": training["launches"][name],
+            "paths": {path: counts.get(name, 0) for path, counts in paths.items()},
+            "mbt2018": {k: mbt["rans"][name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms", "steps")},
         })
     train_line = {
         "batch": TRAIN_BATCH, "patch": TRAIN_PATCH,
@@ -1202,8 +1520,14 @@ def main() -> int:
                                         "host_data_ms", "host_dispatch_ms", "cpu_max_rel_err")},
         "gdn_backward": training["gdn_backward"],
     }
+    families = {
+        **{name: {k: r[k] for k in r if k != "launches"} for name, r in factorized.items()},
+        "mbt2018-mean": {"train": {k: v for k, v in mbt["train"].items() if k != "launches"},
+                         "throughput": mbt["throughput"],
+                         "k1_max_abs_err": mbt["k1_max_abs_err"]},
+    }
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "training": train_line}))
+    print(json.dumps({"kernels": kernels, "training": train_line, "families": families}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

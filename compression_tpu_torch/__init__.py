@@ -5,15 +5,20 @@ its module paths so every counterpart is easy to find:
 
   ops/             lower_bound / upper_bound, clip, round_st / soft_round,
                    same-padding
-  layers/          SignalConv2D, GDN (+ the hand-written CUDA kernel K1, and
-                   K1 under autograd)
+  layers/          SignalConv2D, GDN (+ the hand-written CUDA kernel K1 at any
+                   width up to 192, and K1 under autograd)
   distributions/   Normal, DeepFactorized, uniform-noise adapters, tails
   entropy_models/  batched (z) and scale-indexed (y) models: training calls
                    and CDF tables
   codec/           native C++ range coder (ctypes) + host API; the device
                    rANS coder (kernels K3/K2) and its NumPy spec
-  models/          bmshj2018 scale-hyperprior (Codec with the host and device
-                   coders; training), common.py (train loop, data, checkpoints)
+  models/          bmshj2018 scale hyperprior and mbt2018 mean-scale
+                   hyperprior (Codecs with the host and device coders;
+                   training), bls2017 factorized prior in its two archs
+                   (bls2017, bmshj2018-factorized; one-image Codec;
+                   training), codec_base.py (what the codecs share),
+                   device_coding.py (blob formats, the device coder's
+                   stages), common.py (train loop, data, checkpoints)
   parallel/        double-buffered device/host coding pipeline
   util/            PackedTensors, image padding and metrics, numeric, stage timing
   csrc/            CUDA C++ kernels (gdn.cu, rans.cu), built with nvcc at first use

@@ -9,13 +9,15 @@ in both directions.
   :func:`pack_msgpack` is the matching writer: what it writes, flax's
   ``serialization.from_bytes`` reads.
 * :func:`params_from_numpy` maps such a tree (``params/params/...`` or any
-  suffix of it) onto :class:`~compression_tpu_torch.models.bmshj2018.
-  BMSHJ2018Model`'s state dict: conv kernels ``(kh, kw, cin, cout)`` become
-  OIHW ``(cout, cin, kh, kw)``; GDN ``beta``/``gamma`` stay raw (sqrt
-  space, reparameterized at call time); the DeepFactorized ``matrices`` /
-  ``biases`` / ``factors`` lists map as they are. :func:`params_to_numpy`
-  is its inverse, the flax param tree of a state dict (also used for
-  per-parameter optimizer moments).
+  suffix of it) onto a model's state dict, from the tree's own top-level
+  keys: the transforms (``analysis``, ``synthesis``, ``hyper_analysis``,
+  ``hyper_synthesis``, whichever the model has) and a DeepFactorized prior
+  holder (``prior`` in bls2017, ``hyperprior`` in the hyperprior models).
+  Conv kernels ``(kh, kw, cin, cout)`` become OIHW ``(cout, cin, kh, kw)``;
+  GDN ``beta``/``gamma`` stay raw (sqrt space, reparameterized at call
+  time); the DeepFactorized ``matrices`` / ``biases`` / ``factors`` lists
+  map as they are. :func:`params_to_numpy` is its inverse, the flax param
+  tree of a state dict (also used for per-parameter optimizer moments).
 """
 
 from __future__ import annotations
@@ -189,32 +191,42 @@ def _as_list(value):
 
 
 _TRANSFORMS = ("analysis", "synthesis", "hyper_analysis", "hyper_synthesis")
+_PRIORS = ("prior", "hyperprior")  # DeepFactorized holders
 _PRIOR_FIELDS = ("matrices", "biases", "factors")
 
 
+def _array(value) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, np.float32))
+
+
+def _numpy(value: torch.Tensor) -> np.ndarray:
+    return value.detach().to("cpu", torch.float32).numpy().copy()
+
+
 def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Maps a bmshj2018 JAX param tree onto the port's state dict."""
+    """Maps a JAX param tree onto the port's state dict (see the module
+    docstring); raises on a top-level key or leaf it does not know."""
     while "params" in tree:  # {"params": {"params": {...}}, "step": ...}
         tree = tree["params"]
     state: Dict[str, torch.Tensor] = {}
-    for name in _TRANSFORMS:
-        for layer, leaves in tree[name].items():
+    for name, holder in tree.items():
+        if name in _PRIORS:
+            prior = holder["deep_factorized"]
+            for field in _PRIOR_FIELDS:
+                for i, value in enumerate(_as_list(prior[field])):
+                    state[f"{name}.{field}.{i}"] = _array(value)
+            continue
+        if name not in _TRANSFORMS:
+            raise KeyError(f"unexpected top-level parameter {name!r}")
+        for layer, leaves in holder.items():
             for leaf, value in leaves.items():
                 key = f"{name}.{layer}"
                 if leaf == "kernel":
                     state[f"{key}.weight"] = kernel_to_torch(value)
                 elif leaf in ("bias", "beta", "gamma"):
-                    state[f"{key}.{leaf}"] = torch.from_numpy(
-                        np.array(value, np.float32)
-                    )
+                    state[f"{key}.{leaf}"] = _array(value)
                 else:
                     raise KeyError(f"unexpected leaf {name}/{layer}/{leaf}")
-    prior = tree["hyperprior"]["deep_factorized"]
-    for field in _PRIOR_FIELDS:
-        for i, value in enumerate(_as_list(prior[field])):
-            state[f"hyperprior.{field}.{i}"] = torch.from_numpy(
-                np.array(value, np.float32)
-            )
     return state
 
 
@@ -222,7 +234,7 @@ def params_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of :func:`params_from_numpy`: the flax param tree
     (``{"analysis": {"conv0": {"kernel": HWIO, "bias": ...}, ...},
     "hyperprior": {"deep_factorized": {"matrices": {"0": ...}}}}``) of a
-    bmshj2018 state dict, or of any per-parameter dict with its keys."""
+    state dict, or of any per-parameter dict with its keys."""
     tree: Dict[str, Any] = {}
     for key, value in state.items():
         parts = key.split(".")
@@ -231,14 +243,12 @@ def params_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             if leaf == "weight":
                 leaf, arr = "kernel", kernel_from_torch(value)
             else:
-                arr = value.detach().to("cpu", torch.float32).numpy().copy()
+                arr = _numpy(value)
             tree.setdefault(name, {}).setdefault(layer, {})[leaf] = arr
-        elif parts[0] == "hyperprior":
-            _, field, i = parts
-            prior = tree.setdefault("hyperprior", {}).setdefault(
-                "deep_factorized", {})
-            prior.setdefault(field, {})[i] = (
-                value.detach().to("cpu", torch.float32).numpy().copy())
+        elif parts[0] in _PRIORS:
+            name, field, i = parts
+            prior = tree.setdefault(name, {}).setdefault("deep_factorized", {})
+            prior.setdefault(field, {})[i] = _numpy(value)
         else:
             raise KeyError(f"unexpected parameter {key}")
     return tree
@@ -249,9 +259,9 @@ def flax_key_path(name: str) -> str:
     it (``"params/analysis/conv0/kernel"``; a DeepFactorized field by its
     index: ``"params/hyperprior/deep_factorized/0/2"`` for matrices[2])."""
     parts = name.split(".")
-    if parts[0] == "hyperprior":
-        _, field, i = parts
-        return f"params/hyperprior/deep_factorized/{_PRIOR_FIELDS.index(field)}/{i}"
+    if parts[0] in _PRIORS:
+        holder, field, i = parts
+        return f"params/{holder}/deep_factorized/{_PRIOR_FIELDS.index(field)}/{i}"
     if parts[-1] == "weight":
         parts[-1] = "kernel"
     return "params/" + "/".join(parts)

@@ -1,6 +1,6 @@
 """Batched entropy model: one prior per channel, shared across positions
 (counterpart of ``compression_tpu/entropy_models/continuous_batched.py``;
-bmshj2018 codes z with it).
+the hyperprior models code z with it, bls2017 codes y).
 
 Training: ``em(y, generator, training=True)`` returns ``(y_tilde, bits)``
 with additive uniform noise drawn from ``generator`` (on y's device);
@@ -80,6 +80,15 @@ class ContinuousBatchedEntropyModel(ContinuousEntropyModelBase):
             tables.offset.reshape(self.prior_batch_shape).astype(np.float32),
             device=device,
         )
+
+    def compress(self, y: torch.Tensor) -> List[bytes]:
+        """Codes ``y``, one bitstream per leading-batch element: the symbols
+        ``round(y - symbol_offset())`` are taken in float32 on y's device,
+        then fetched and range-coded on the host."""
+        _, unit = self._split_shapes(y.shape)
+        offset = self.symbol_offset(y.device)
+        symbols = torch.round(y.to(torch.float32) - offset).to(torch.int32)
+        return self.compress_symbols(symbols.cpu().numpy().reshape((-1,) + unit))
 
     def compress_symbols(self, symbols: np.ndarray) -> List[bytes]:
         """Codes precomputed int32 symbols ``round(y - symbol_offset())``."""

@@ -1,6 +1,6 @@
 """Indexed entropy models: one CDF row per scale index (counterpart of
-``compression_tpu/entropy_models/continuous_indexed.py``; bmshj2018 codes y
-with it).
+``compression_tpu/entropy_models/continuous_indexed.py``; the hyperprior
+models code y with it).
 
 The hyper-synthesis predicts a scale per element; the scale is quantized
 onto the log-spaced table (SCALES_MIN..SCALES_MAX, 64 levels) and the index

@@ -7,7 +7,9 @@ gamma)``, or ``x * sqrt(...)`` for IGDN, with fp32 accumulation.
 
 * ``fused_gdn(x, beta, gamma, inverse)`` launches ``csrc/gdn.cu`` for a
   CUDA tensor (or raises), and runs the plain twin ``fused_gdn_reference``
-  for a CPU tensor. ``fused_gdn.launches`` counts kernel launches.
+  for a CPU tensor. ``fused_gdn.launches`` counts kernel launches. The
+  kernel is built for C a multiple of 32 up to 192; other widths up to 192
+  go through it padded (:func:`pad_channels`).
 * ``gdn_autograd(x, beta, gamma, inverse)`` is the same forward under
   autograd (:class:`FusedGDN`): the kernel (or, for a CPU tensor, the twin)
   computes ``y``, and the backward is plain torch ops. The JAX package has
@@ -30,6 +32,7 @@ import pathlib
 import threading
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from compression_tpu_torch.util import cuda_build
@@ -40,6 +43,7 @@ __all__ = [
     "fused_gdn_backward",
     "fused_gdn_reference",
     "gdn_autograd",
+    "pad_channels",
     "build",
     "supported_channels",
 ]
@@ -63,9 +67,25 @@ def _smem_bytes(c: int) -> int:
 
 
 def supported_channels(c: int) -> bool:
-    """Channel counts the kernel takes: multiples of 32 from 32 to 192, whose
-    gamma slice and x stages fit in shared memory."""
+    """Channel counts the kernel is built for: multiples of 32 from 32 to
+    192, whose gamma slice and x stages fit in shared memory."""
     return c % 32 == 0 and 0 < c <= _MAX_C and _smem_bytes(c) <= _MAX_SMEM
+
+
+def pad_channels(x, beta, gamma):
+    """``(x, beta, gamma)`` widened to the next multiple of 32 channels: x's
+    new columns 0, beta's new entries 1, gamma's new rows and columns 0. The
+    real channels' norms gain only exact zeros (``0 * 0 * gamma``, ``x *
+    0``), and the new channels come out 0, so the kernel at the padded width
+    gives the real channels unchanged. Returns the inputs as they are where
+    C is already a multiple of 32. The padded copy of x costs bytes only at
+    widths no full-width model has (every reference GDN is 128 or 192)."""
+    c = x.shape[-1]
+    extra = -c % 32
+    if not extra:
+        return x, beta, gamma
+    return (F.pad(x, (0, extra)), F.pad(beta, (0, extra), value=1.0),
+            F.pad(gamma, (0, extra, 0, extra)))
 
 
 def fused_gdn_reference(x, beta, gamma, inverse: bool = False):
@@ -110,10 +130,8 @@ def _check_inputs(x, beta, gamma) -> int:
             f"fused_gdn: beta {tuple(beta.shape)} / gamma {tuple(gamma.shape)}"
             f" do not match C = {c}"
         )
-    if not supported_channels(c):
-        raise ValueError(
-            f"fused_gdn: C = {c} unsupported (a multiple of 32 from 32 to 192)"
-        )
+    if not 0 < c <= _MAX_C:
+        raise ValueError(f"fused_gdn: C = {c} unsupported (1 to {_MAX_C})")
     return c
 
 
@@ -121,8 +139,10 @@ def fused_gdn(x, beta, gamma, inverse: bool = False):
     """Fused GDN over the trailing channel axis of ``x`` (any leading dims).
 
     CPU tensors run :func:`fused_gdn_reference`; CUDA tensors launch the
-    kernel, or raise if it cannot (unsupported shape or type, build or
-    launch failure). There is no fallback between the two.
+    kernel once, or raise if it cannot (C above 192, a type other than
+    float32, build or launch failure). There is no fallback between the
+    two. A C that is not a multiple of 32 runs at the padded width of
+    :func:`pad_channels`, and the result is cut back to C.
     """
     if x.device.type == "cpu":
         return fused_gdn_reference(x, beta, gamma, inverse)
@@ -138,23 +158,25 @@ def fused_gdn(x, beta, gamma, inverse: bool = False):
             "fused_gdn: the CUDA kernel has no backward of its own; "
             "differentiate through gdn_autograd (FusedGDN), as GDN does"
         )
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    xp, beta, gamma = pad_channels(x, beta, gamma)
+    width = xp.shape[-1]
+    out = torch.empty_like(xp, memory_format=torch.contiguous_format)
     rows = x.numel() // c
     if rows == 0:
-        return out
+        return out[..., :c]
     lib = cuda_build.load(_SOURCE, _declare)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.tpc_gdn_forward(
-            x.data_ptr(), beta.data_ptr(), gamma.data_ptr(), out.data_ptr(),
-            rows, c, int(bool(inverse)), stream,
+            xp.data_ptr(), beta.data_ptr(), gamma.data_ptr(), out.data_ptr(),
+            rows, width, int(bool(inverse)), stream,
         )
     if rc != 0:
         msg = lib.tpc_gdn_error_string(rc).decode()
         raise RuntimeError(f"fused_gdn kernel launch failed: {msg} ({rc})")
     with _count_lock:  # pipeline worker threads launch concurrently
         fused_gdn.launches += 1
-    return out
+    return out if width == c else out[..., :c].contiguous()
 
 
 fused_gdn.launches = 0

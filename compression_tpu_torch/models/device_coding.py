@@ -7,9 +7,16 @@ device-coded (rANS) blobs hold 5, ``[y_words, z_string, xshape, zshape,
 a device-coded blob is K-lane rANS (:mod:`compression_tpu_torch.codec.rans`),
 coded on the card; only its compressed words cross to the host.
 
-Not ported yet: the duck-typed ``dispatch_encode_rans`` /
-``finish_encode_rans`` / ``decompress_batch_rans`` that the mean-scale
-codecs (mbt2018, HiFiC) share; their first user is the mbt2018 port.
+The hyperprior codecs (bmshj2018, mbt2018; HiFiC later) share the
+device-coded stages here, duck-typed against the codec as in the JAX
+package: z factorized, y coded as ``round(y - mu)`` (``round(y)`` without a
+mean) against sigma-indexed rows. A codec has
+``cfg.downscale``, ``timer``, ``em``, ``side_em``, ``_front`` (uint8 images
+on the device -> y, z symbols, z_hat), ``_mu_rows`` (z_hat -> mu or None,
+rows; the one function encode and decode both call), ``_center_round``,
+``_apply_loc``, ``_synthesize``, ``_pack`` and the copy helpers of
+:class:`~compression_tpu_torch.models.codec_base.DeviceCodec`. Each stage
+returns or takes a :class:`~compression_tpu_torch.parallel.pipeline.Work`.
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ from typing import List
 import numpy as np
 import torch
 
+from compression_tpu_torch.parallel.pipeline import Work
 from compression_tpu_torch.util import PackedTensors
+from compression_tpu_torch.util.image import pad_to_multiple_np
 
 __all__ = [
     "rans_for",
@@ -29,6 +38,13 @@ __all__ = [
     "parse_device_blobs",
     "fetch_streams",
     "pad_words",
+    "StreamOverflow",
+    "encode_symbols",
+    "dispatch_encode_rans",
+    "finish_encode_rans",
+    "dispatch_decode_rans",
+    "finish_decode_rans",
+    "decompress_batch_rans",
 ]
 
 
@@ -166,3 +182,94 @@ def pad_words(word_lists) -> np.ndarray:
     for b, w in enumerate(word_lists):
         out[b, : len(w)] = w
     return out
+
+
+class StreamOverflow(ValueError):
+    """A batch's rANS stream outgrew its capacity (the encoder's flag)."""
+
+
+def encode_symbols(codec, images: np.ndarray):
+    """Pads and uploads uint8 images and enqueues the encode chain on the
+    device: ``(y symbols, z symbols, CDF rows, (H, W))``, the y symbols
+    ``round(y - mu)`` for a mean-scale codec (``_front``'s rounded y where
+    ``_mu_rows`` gives no mu). Both coders' encode stages start here."""
+    x, hw = pad_to_multiple_np(np.asarray(images, np.uint8), codec.cfg.downscale)
+    y, z_sym, z_hat = codec._front(codec._to_device(x))
+    mu, rows = codec._mu_rows(z_hat)
+    return (y if mu is None else codec._center_round(y, mu)), z_sym, rows, hw
+
+
+def dispatch_encode_rans(codec, images: np.ndarray):
+    """Device stage: the encode chain and K3, all enqueued on the codec's
+    stream; the lengths, overflow flags and z symbols start their copies to
+    the host (z as int16 where it fits). Returns without waiting; the work
+    keeps the device symbols ``sym``, ``z_sym`` and ``rows`` (a codec may
+    code an overflowed batch with the host coder)."""
+    with codec.timer.stage("enc/dispatch"):
+        sym, z_sym, rows, hw = encode_symbols(codec, images)
+        n = sym.shape[0]
+        enc, _dec, K, _cap = rans_for(codec, sym[0].numel())
+        stream, lengths, overflow = enc(sym.reshape(n, -1), rows.reshape(n, -1))
+        return Work(
+            stream=stream, lengths=codec._to_host(lengths),
+            overflow=codec._to_host(overflow),
+            z16=codec._to_host(z_sym.to(torch.int16)),
+            fit16=codec._to_host(torch.all(torch.abs(z_sym) <= 32767)),
+            event=codec._event(), hw=hw, K=K, sym=sym, z_sym=z_sym, rows=rows,
+        )
+
+
+def finish_encode_rans(codec, w) -> List[bytes]:
+    """Host stage: wait, raise :class:`StreamOverflow` on an overflowed
+    stream (as the JAX package's mean-scale codecs do), range-code z, fetch
+    the y words, pack 5-field blobs."""
+    with codec.timer.stage("enc/fetch"):
+        if w.event is not None:
+            w.event.synchronize()
+        lengths, overflow = w.lengths.cpu().numpy(), w.overflow.cpu().numpy()
+        z_sym = (w.z16 if bool(w.fit16) else w.z_sym).cpu().numpy().astype(np.int32)
+    if overflow.any():
+        raise StreamOverflow(
+            "rANS stream capacity exceeded (pathological symbol statistics); "
+            "use the host coder for this input"
+        )
+    with codec.timer.stage("enc/code_z"):
+        z_strings = codec.side_em.compress_symbols(z_sym)
+    with codec.timer.stage("enc/fetch_stream"):
+        streams = fetch_streams(w.stream, lengths)
+    with codec.timer.stage("enc/pack"):
+        return codec._pack(streams, z_strings, w.hw, z_sym.shape[1:3], w.K)
+
+
+def dispatch_decode_rans(codec, blobs: List[bytes]):
+    """Parse 5-field blobs, host-decode z, then enqueue z_hat -> (mu, rows),
+    K2, ``values + mu``, the synthesis and the copies of the image and the
+    ok flags to the host."""
+    with codec.timer.stage("dec/parse"):
+        y_words, z_strings, xshape, zshape, K = parse_device_blobs(blobs)
+    with codec.timer.stage("dec/code_z"):
+        z_hat = codec.side_em.decompress(z_strings, tuple(int(v) for v in zshape))
+    with codec.timer.stage("dec/dispatch"):
+        mu, rows = codec._mu_rows(codec._to_device(z_hat))
+        n = len(blobs)
+        _enc, dec, _K, _cap = rans_for(codec, rows[0].numel(), K)
+        values, ok = dec(codec._to_device(pad_words(y_words)), rows.reshape(n, -1))
+        image = codec._synthesize(codec._apply_loc(values.reshape(rows.shape), mu))
+        return Work(coder="device", image=codec._to_host(image),
+                    ok=codec._to_host(ok), event=codec._event(), xshape=xshape)
+
+
+def finish_decode_rans(codec, w) -> np.ndarray:
+    """Host stage: wait for the image; raise on a bad final rANS state."""
+    with codec.timer.stage("dec/fetch_image"):
+        if w.event is not None:
+            w.event.synchronize()
+        image, ok = w.image.numpy(), w.ok.cpu().numpy()
+    if not ok.all():
+        raise ValueError("corrupt device-coded bitstream (rANS state)")
+    return image[:, : int(w.xshape[0]), : int(w.xshape[1]), :]
+
+
+def decompress_batch_rans(codec, blobs: List[bytes]) -> np.ndarray:
+    """Decodes same-size device-coded blobs as one batch."""
+    return finish_decode_rans(codec, dispatch_decode_rans(codec, blobs))

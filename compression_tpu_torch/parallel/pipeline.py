@@ -19,7 +19,15 @@ from typing import Callable, Iterable, Iterator, List, Optional
 
 import torch
 
-__all__ = ["Pipeline", "stream_context"]
+__all__ = ["Pipeline", "Work", "stream_context"]
+
+
+class Work:
+    """In-flight work between the two stages: device tensors, pinned host
+    copies (filled once ``event`` fires) and what the host stage needs."""
+
+    def __init__(self, **fields):
+        self.__dict__.update(fields)
 
 
 def stream_context(stream: Optional["torch.cuda.Stream"]):

@@ -1,6 +1,8 @@
-"""Tests of the port that need the card: the CUDA kernels (K1 fused GDN, K3/K2
-rANS encode/decode) against their plain twins, K1 under autograd, the codec
-on the card with either coder, and a training step, against the CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
+"""Tests of the port that need the card: the CUDA kernels (K1 fused GDN at
+any width up to 192, K3/K2 rANS encode/decode) against their plain twins, K1
+under autograd, the codecs on the card (bmshj2018 with either coder,
+bls2017 in both archs, mbt2018 with either coder), and training steps,
+against the CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
 without JAX run it alone, without the suite's conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -17,7 +19,7 @@ from compression_tpu_torch.codec import pmf_to_quantized_cdf, rans, rans_ref
 from compression_tpu_torch.entropy_models.continuous_base import CdfTables
 from compression_tpu_torch.layers import fused_gdn, fused_gdn_reference, parameters
 from compression_tpu_torch.layers.gdn_kernel import FusedGDN
-from compression_tpu_torch.models import bmshj2018, common
+from compression_tpu_torch.models import bls2017, bmshj2018, common, mbt2018
 from compression_tpu_torch.models.device_coding import rans_for
 from compression_tpu_torch.util import PackedTensors
 from compression_tpu_torch.util.image import pad_to_multiple_np
@@ -102,6 +104,24 @@ def test_kernel_rows_do_not_depend_on_their_tile(cuda, inverse):
             assert torch.equal(alone, full[lo:hi]), (lo, hi)
 
 
+@pytest.mark.parametrize("c", [8, 16, 40])
+@pytest.mark.parametrize("rows", [1, 4551, 200_000])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_kernel_at_any_width_matches_twin(cuda, c, rows, inverse):
+    """C not a multiple of 32 goes through one K1 launch at the padded
+    width and comes back at C, contiguous, within the kernel tolerance."""
+    x, beta, gamma = _inputs(c * 7 + rows, rows, c, cuda)
+    x = x.reshape(rows, 1, c)
+    before = fused_gdn.launches
+    with torch.inference_mode():
+        got = fused_gdn(x, beta, gamma, inverse)
+        torch.cuda.synchronize()
+        want = fused_gdn_reference(x, beta, gamma, inverse)
+    assert fused_gdn.launches == before + 1
+    assert got.shape == x.shape and got.is_contiguous()
+    torch.testing.assert_close(got, want, **TOL)
+
+
 def test_kernel_takes_leading_dims(cuda):
     x, beta, gamma = _inputs(1, 2 * 7 * 9, 192, cuda)
     x4 = x.reshape(2, 7, 9, 192)
@@ -119,9 +139,9 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
             fused_gdn(x.t(), beta, gamma[:64, :64].contiguous())
         with pytest.raises(TypeError, match="float32"):
             fused_gdn(x.double(), beta, gamma)
-        x48, b48, g48 = _inputs(3, 64, 48, cuda)
+        x224, b224, g224 = _inputs(3, 64, 224, cuda)
         with pytest.raises(ValueError, match="unsupported"):
-            fused_gdn(x48, b48, g48)
+            fused_gdn(x224, b224, g224)
     with pytest.raises(RuntimeError, match="no backward"):
         fused_gdn(x.requires_grad_(), beta, gamma)
 
@@ -386,7 +406,7 @@ def test_codec_device_coder_on_card(cuda):
 # -- training: K1 under autograd, one step against the CPU --------------------
 
 
-@pytest.mark.parametrize("c", [32, 64, 128, 192])
+@pytest.mark.parametrize("c", [8, 16, 32, 40, 64, 128, 192])
 @pytest.mark.parametrize("rows", [1, 4551, 131_072])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_function_gradients_match_twin_autograd(cuda, c, rows, inverse):
@@ -456,3 +476,73 @@ def test_train_step_launches_k1_six_times(cuda):
     assert np.isfinite(loss.item())
     assert (fused_gdn.launches - counts[0], rans.rans_encode.launches - counts[1],
             rans.rans_decode.launches - counts[2]) == (6, 0, 0)
+
+
+# -- the other families on the card ---------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["bls2017", "bmshj2018"])
+def test_bls2017_round_trip_on_card_matches_cpu(cuda, arch):
+    """A C = 32 bls2017 (or bmshj2018-factorized) codec on the card: K1
+    launches over one round trip (4 or 6), byte-identical re-compression,
+    and a reconstruction within one level of the CPU codec's on the same
+    tables."""
+    cfg = bls2017.Config(num_filters=32, arch=arch)
+    cpu = bls2017.Codec(bls2017.BLS2017Model(cfg, seed=2), device="cpu")
+    gpu = bls2017.Codec(bls2017.BLS2017Model(cfg, seed=2), device=cuda,
+                        tables=cpu.em.tables)
+    image = (np.random.RandomState(2).rand(96, 130, 3) * 255).astype(np.uint8)
+    before = fused_gdn.launches
+    blob = gpu.compress(image)
+    out = gpu.decompress(blob)
+    assert fused_gdn.launches == before + (4 if arch == "bls2017" else 6)
+    assert out.shape == image.shape and gpu.compress(image) == blob
+    cpu_out = cpu.decompress(cpu.compress(image))
+    assert np.abs(cpu_out.astype(np.int16) - out.astype(np.int16)).max() <= 1
+
+
+@pytest.mark.parametrize("c", [8, 32])
+def test_mbt2018_round_trip_on_card_matches_cpu(cuda, c):
+    """A small mbt2018 codec on the card (C = 8 runs K1 padded) with both
+    coders: launches over one device-coded round trip (K1 6, K3 2, K2 1),
+    the device coder's reconstruction bit-equal to the host coder's,
+    batch-1 decode equal to the batch decode, and the CPU codec within one
+    level on the same tables."""
+    cfg = mbt2018.Config(num_filters=c, num_latents=c, num_hyperlatents=c)
+    cpu = mbt2018.Codec(mbt2018.MBT2018Model(cfg, seed=4), device="cpu")
+    gpu = mbt2018.Codec(mbt2018.MBT2018Model(cfg, seed=4), device=cuda,
+                        tables={"side": cpu.side_em.tables, "main": cpu.em.tables})
+    images = (np.random.RandomState(3).rand(3, 96, 130, 3) * 255).astype(np.uint8)
+    before = (rans.rans_encode.launches, rans.rans_decode.launches, fused_gdn.launches)
+    blobs = gpu.compress_batch(images, coder="device")
+    out = gpu.decompress_batch(blobs)
+    assert (rans.rans_encode.launches, rans.rans_decode.launches,
+            fused_gdn.launches) == (before[0] + 2, before[1] + 1, before[2] + 6)
+    host = gpu.compress_batch(images)
+    np.testing.assert_array_equal(gpu.decompress_batch(host), out)
+    assert gpu.compress_batch(images, coder="device") == blobs
+    np.testing.assert_array_equal(gpu.decompress(blobs[1]), out[1])
+    cpu_out = cpu.decompress_batch(cpu.compress_batch(images))
+    assert np.abs(cpu_out.astype(np.int16) - out.astype(np.int16)).max() <= 1
+
+
+def test_mbt2018_train_step_on_card_matches_cpu(cuda):
+    """One quantized (training=False) step of a C = 32 mbt2018 model, card
+    against CPU: the loss (1e-4 relative) and every gradient (1e-3 relative
+    plus 1e-3 of its largest entry), as for bmshj2018."""
+    cfg = mbt2018.Config(num_filters=32, num_latents=32, num_hyperlatents=32)
+    tcfg = common.TrainConfig(learning_rate=1e-3)
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 128, 128, 3).astype(np.float32))
+    out = []
+    for device in ("cpu", cuda):
+        model = mbt2018.MBT2018Model(cfg, seed=3).to(device)
+        optimizer = common.make_optimizer(model, tcfg)
+        loss, _ = common.train_step(model, optimizer,
+                                    mbt2018.make_loss_fn(model, training=False),
+                                    x.to(device), None, common.lr_schedule(tcfg))
+        out.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = out
+    np.testing.assert_allclose(loss_gpu, loss_cpu, rtol=1e-4)
+    for n in g_cpu:
+        torch.testing.assert_close(g_gpu[n], g_cpu[n], rtol=1e-3,
+                                   atol=1e-3 * g_cpu[n].abs().max().item(), msg=n)

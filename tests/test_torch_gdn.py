@@ -18,7 +18,7 @@ from compression_tpu.layers.pallas.gdn_kernel import fused_gdn as jax_fused_gdn
 from compression_tpu_torch import convert
 from compression_tpu_torch.layers import GDN, fused_gdn, fused_gdn_reference
 from compression_tpu_torch.layers import gdn_kernel, parameters
-from compression_tpu_torch.layers.gdn_kernel import FusedGDN, gdn_autograd
+from compression_tpu_torch.layers.gdn_kernel import FusedGDN, gdn_autograd, pad_channels
 
 torch.set_num_threads(1)
 
@@ -90,6 +90,56 @@ def test_gdn_module_matches_flax_lax_path(c, inverse):
     with torch.no_grad():
         got = mod(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("c", [8, 16, 40])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_padded_width_gives_the_twin_at_any_width(c, inverse):
+    """K1 runs C that is not a multiple of 32 at the width pad_channels
+    gives (x's new columns 0, beta's 1, gamma's new rows and columns 0):
+    the twin at that width, cut back to C, is the twin at C (the padded
+    products add exact zeros), and the new channels come out 0. Against
+    the Pallas kernel (interpret mode) too, at the kernel tolerance."""
+    x, beta, gamma = (torch.from_numpy(a) for a in _inputs(c, (2, 7, 9), c))
+    xp, bp, gp = pad_channels(x, beta, gamma)
+    width = -(-c // 32) * 32
+    assert xp.shape == (2, 7, 9, width) and bp.shape == (width,)
+    assert gp.shape == (width, width) and xp.is_contiguous()
+    assert torch.equal(xp[..., :c], x) and not xp[..., c:].any()
+    assert torch.equal(bp[c:], torch.ones(width - c)) and not gp[c:].any()
+    assert not gp[:, c:].any()
+    padded = fused_gdn_reference(xp, bp, gp, inverse)
+    want = fused_gdn_reference(x, beta, gamma, inverse)
+    torch.testing.assert_close(padded[..., :c], want, rtol=1e-6, atol=1e-7)
+    assert not padded[..., c:].any()
+    pallas = jax_fused_gdn(jnp.asarray(x.numpy()), jnp.asarray(beta.numpy()),
+                           jnp.asarray(gamma.numpy()), inverse=inverse, interpret=True)
+    np.testing.assert_allclose(padded[..., :c].numpy(), np.asarray(pallas), **TOL)
+    assert pad_channels(xp, bp, gp)[0] is xp  # already a multiple of 32
+
+
+@pytest.mark.parametrize("c", [8, 16, 40])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_function_gradients_at_any_width(c, inverse):
+    """FusedGDN at C = 8, 16, 40 (on the CPU its forward is the twin):
+    gradients equal autograd through the padded path cut back to C, which
+    is what the card computes, and autograd through the twin at C."""
+    x, beta, gamma = (torch.from_numpy(a) for a in _inputs(c + 1, (3, 5, 6), c))
+    gy = torch.from_numpy(np.random.RandomState(c).randn(3, 5, 6, c).astype(np.float32))
+
+    def padded(x, beta, gamma, inverse):
+        return fused_gdn_reference(*pad_channels(x, beta, gamma), inverse)[..., :c]
+
+    grads = []
+    for fn in (lambda *a: FusedGDN.apply(*a, inverse), lambda *a: padded(*a, inverse),
+               lambda *a: fused_gdn_reference(*a, inverse)):
+        leaves = [t.clone().requires_grad_() for t in (x, beta, gamma)]
+        fn(*leaves).backward(gy)
+        grads.append([t.grad for t in leaves])
+    for other in grads[1:]:
+        for got, want in zip(grads[0], other):
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * want.abs().max().item())
 
 
 def test_nonneg_apply_is_bit_equal():
