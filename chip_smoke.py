@@ -1,6 +1,7 @@
 """On-card smoke run of the PyTorch/CUDA port: bmshj2018 at full width, with
 the host coder and with the device (rANS) coder, its training, and the
-other families at full width (bls2017, bmshj2018-factorized, mbt2018-mean).
+other families at full width (bls2017, bmshj2018-factorized, mbt2018-mean,
+b2018, ms2020-cc10).
 
     python3 chip_smoke.py [--batches N] [--reps N]
 
@@ -86,7 +87,30 @@ of a checkout. Phases, each fatal on failure:
     equal to the batch-8 decode); d. K3 and K2 against their twins on its
     symbols and rows (N=491,520, T=3,840), with times, bounds and serial
     floors; e. compress_iter / decompress_iter throughput with each coder;
-    f. a profile of one round trip with each coder.
+    f. a profile of one round trip with each coder;
+11. b2018 at full width, b2018-gdn at 192 filters and b2018-leaky_relu at
+    128, 4 rate points each: 100 steps of train_model from the seed (the
+    rate-point parameters at 10x the learning rate; the loss falling), the
+    launches of one training step (K1 4 / 0), then the one-image codec
+    over the 8 images at each quality: K1 launches over exactly one round
+    trip (4 / 0), 3-field blobs carrying their quality, byte-identical
+    re-compression, bpp and PSNR at each quality with bpp at q4 above q1,
+    K1 against its twin on the path's own GDN inputs, a 96x130 input
+    within one level of the CPU;
+12. ms2020-cc10 at 192/320/192, 10 slices of 32: a. 100 steps of
+    train_model from the seed (steps/s, img/s), the quantization-offset
+    root-find's share of a step, and the launches of one step (K1 6, K3 0,
+    K2 0); b. the codec over the 8 images with each coder (launches K1 6
+    host; K1 6, K3 20, K2 10 on chip device; 13- and 14-field blobs, the
+    device reconstruction equal to the host coder's, byte-identical
+    re-compression, batch-1 decode equal to the batch-8 decode, each
+    slice's device stream within 1.1x the host string + 4K + 16 bytes);
+    c. K3 and K2 against their twins on slice 0's real symbols and rows
+    (N = 49,152, T = 384) with times, bounds and serial floors; d.
+    compress_iter / decompress_iter throughput with each coder; e. the
+    encode chain's cost (the front alone, then with the per-image slice
+    chain: host enqueue ms, device activities and busy ms); f. a profile
+    of one round trip with each coder.
 
 Then one JSON line with every kernel's numbers (and its launches on every
 path), the training numbers and the families' numbers, the card line, and
@@ -124,6 +148,7 @@ PEAK_HBM_BYTES = 3.35e12
 PEAK_INT32_OPS = 132 * 64 * 1.98e9
 BATCH, HEIGHT, WIDTH = 8, 512, 768
 GDN_TOL = 2e-5  # tests/test_pallas_gdn.py's tolerance for the TPU kernel
+RANS_K = 128    # the lanes rans_for picks at every codec's 768x512 shapes
 # Integer operations a symbol, counted from the scan bodies (rans.py
 # step(); the kernels do the same work): the encoder's field mapping,
 # fc gather, pushes, renorm test and state update (u32 divide and modulo
@@ -484,14 +509,19 @@ def phase_rans_kernels(codec, images, reps: int, main_path: bool = True) -> dict
         encode_symbols, fetch_streams, pad_words, rans_for)
 
     with codec._on_device():
-        values, _, rows, _ = encode_symbols(codec, images)
+        if num_streams(codec) > 1:  # ms2020: slice 0's symbols and rows
+            syms, _, slice_rows, _ = codec._encode_slices(images)
+            values, rows = syms[0], slice_rows[0]
+        else:
+            values, _, rows, _ = encode_symbols(codec, images)
         values, rows = values.reshape(BATCH, -1), rows.reshape(BATCH, -1)
     torch.cuda.synchronize()
     N = values.shape[1]
     _enc, _dec, K, cap = rans_for(codec, N)
     tables = codec._rans_tables
-    want_n = HEIGHT * WIDTH // 256 * codec.cfg.num_latents  # 294,912 / 491,520 at 768x512
-    if (N, K, cap) != (want_n, 128, 3 * want_n + 2 * 128 + 64):
+    # 294,912 (bmshj2018), 491,520 (mbt2018) or 49,152 (an ms2020 slice) at 768x512
+    want_n = HEIGHT * WIDTH // 256 * codec.cfg.num_latents // num_streams(codec)
+    if (N, K, cap) != (want_n, RANS_K, 3 * want_n + 2 * RANS_K + 64):
         raise AssertionError(f"unexpected shapes N={N} K={K} cap={cap}")
     variant = rans.decode_variant(tables)
     log(f"  K2 variant: {variant} (table blob {tables.table_bytes} bytes in shared memory)")
@@ -596,9 +626,10 @@ def check_decode_designs(codec, tables, stream, rows, values, K, reps) -> None:
         f"{label} {ms:.4f} ms" for label, ms in times.items()))
 
 
-def check_small_against_cpu(module, model, hw=(128, 192)) -> int:
+def check_small_against_cpu(module, model, hw=(128, 192), **compress_kw) -> int:
     """A small input through the card's codec and the CPU codec of the
-    family ``module`` (same weights, same tables): latents agree to 1e-4,
+    family ``module`` (same weights, same tables; ``compress_kw`` for a
+    one-image codec's compress, b2018's quality): latents agree to 1e-4,
     reconstructions to one level. Returns the K1 launches of the card's
     round trip."""
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn
@@ -608,7 +639,8 @@ def check_small_against_cpu(module, model, hw=(128, 192)) -> int:
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu = module.Codec(cpu_model, device="cpu")
     batched = hasattr(cpu, "side_em")  # the hyperprior codecs' batch API
-    tables = {"side": cpu.side_em.tables, "main": cpu.em.tables} if batched else cpu.em.tables
+    tables = ({"side": cpu.side_em.tables, "main": cpu.em.tables} if batched
+              else getattr(cpu, "tables", None) or cpu.em.tables)
     gpu = module.Codec(model, device=DEVICE, tables=tables)
     x = torch.from_numpy(images).float() / 255.0
     with torch.inference_mode():
@@ -619,7 +651,8 @@ def check_small_against_cpu(module, model, hw=(128, 192)) -> int:
     def round_trip(codec):
         if batched:
             return codec.decompress_batch(codec.compress_batch(images))
-        return np.stack([codec.decompress(codec.compress(im)) for im in images[:1]])
+        return np.stack([codec.decompress(codec.compress(im, **compress_kw))
+                         for im in images[:1]])
 
     round_trip(gpu)  # warm-up
     fused_gdn.launches = 0
@@ -635,13 +668,21 @@ def check_small_against_cpu(module, model, hw=(128, 192)) -> int:
     return launches
 
 
-def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0) -> tuple:
+def num_streams(codec) -> int:
+    """y streams a blob: one a slice for ms2020, else one."""
+    return getattr(codec.cfg, "num_slices", 1)
+
+
+def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
+                cpu_check: bool = True) -> tuple:
     """A hyperprior codec's host-coded path: launches over exactly
     compress_batch + decompress_batch (6 for K1), byte-identical
     re-compression, batch-1 decode equal to the batch-8 decode, PSNR and
     bpp (PSNR held to ``min_psnr`` where the weights are trained ones), and
-    a small input against the CPU path of ``module``. Returns (blobs,
-    reconstruction, launches)."""
+    with ``cpu_check`` a small input against the CPU path of ``module``.
+    Returns (blobs, reconstruction, launches)."""
+    from compression_tpu_torch.models.device_coding import num_fields
+
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn
     from compression_tpu_torch.util.image import psnr_np
 
@@ -661,6 +702,9 @@ def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0) -> t
         raise AssertionError(f"expected 6 K1 launches, saw {launches['gdn']}")
     if out.shape != images.shape or out.dtype != np.uint8:
         raise AssertionError(f"bad output {out.shape} {out.dtype}")
+    fields = num_streams(codec) + 3
+    if any(num_fields(b) != fields for b in blobs):
+        raise AssertionError(f"expected {fields}-field blobs")
 
     if codec.compress_batch(images) != blobs:
         raise AssertionError("re-compression is not byte-identical")
@@ -669,20 +713,22 @@ def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0) -> t
         raise AssertionError("batch-1 decode differs from the batch-8 decode")
     psnr = float(np.mean(psnr_np(out, images)))
     bpp = 8.0 * sum(len(b) for b in blobs) / (BATCH * HEIGHT * WIDTH)
-    log(f"  4-field blobs; re-compress byte-identical; batch-1 decode == batch-8 row 0; "
-        f"PSNR {psnr:.3f} dB, {bpp:.4f} bpp")
+    log(f"  {fields}-field blobs; re-compress byte-identical; batch-1 decode == batch-8 "
+        f"row 0; PSNR {psnr:.3f} dB, {bpp:.4f} bpp")
     if not (np.isfinite(psnr) and 0.0 < bpp) or (
             min_psnr is not None and not (psnr > min_psnr and bpp < 8.0)):
         raise AssertionError("implausible rate/distortion")
-    check_small_against_cpu(module, codec.model)
+    if cpu_check:
+        check_small_against_cpu(module, codec.model)
     return blobs, out, launches
 
 
 def phase_codec_device(codec, images, host_blobs, host_out,
                        label: str = "codec (device coder)") -> dict:
     """A device-coded path: launches over exactly compress_batch +
-    decompress_batch, and its outputs against the host coder's; each y
-    stream within 1.1x the host coder's y string plus the lane states."""
+    decompress_batch (K3 2 and K2 1 a y stream, K1 6), and its outputs
+    against the host coder's; each y stream within 1.1x the host coder's
+    string for it plus the lane states."""
     from compression_tpu_torch.codec import rans
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn
     from compression_tpu_torch.util import PackedTensors
@@ -700,22 +746,25 @@ def phase_codec_device(codec, images, host_blobs, host_out,
                 "rans_decode": rans.rans_decode.launches, "gdn": fused_gdn.launches}
     log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress "
         f"{1e3 * (t1 - t0):.1f} ms, decompress {1e3 * (t2 - t1):.1f} ms; launches {launches}")
-    if launches != {"rans_encode": 2, "rans_decode": 1, "gdn": 6}:
-        raise AssertionError(f"expected K3 2 (fields, lanes), K2 1, K1 6 launches, "
-                             f"saw {launches}")
+    S = num_streams(codec)
+    if launches != {"rans_encode": 2 * S, "rans_decode": S, "gdn": 6}:
+        raise AssertionError(f"expected K3 {2 * S} (fields, lanes a stream), K2 {S}, K1 6 "
+                             f"launches, saw {launches}")
     variants = dict(rans.rans_decode.variant_launches)
-    if variants != {"on_chip": 1, "global": 0}:
-        raise AssertionError(f"expected K2's on-chip variant once, saw {variants}")
+    if variants != {"on_chip": S, "global": 0}:
+        raise AssertionError(f"expected K2's on-chip variant {S} times, saw {variants}")
     y_dev, y_host = [], []
     for blob, host in zip(blobs, host_blobs):
         packed = PackedTensors(blob)
-        fields = packed.unpack([object, object, np.int32, np.int32, np.int32])
-        if int(fields[4][0]) != 128:
-            raise AssertionError(f"blob K = {int(fields[4][0])}, expected 128")
-        y_dev.append(len(bytes(fields[0][0])))
-        y_host.append(len(bytes(PackedTensors(host).unpack_one(0, object)[0])))
-        if y_dev[-1] > 1.1 * y_host[-1] + 4 * 128 + 16:
-            raise AssertionError(f"y stream {y_dev[-1]} B vs host y string {y_host[-1]} B")
+        fields = packed.unpack([object] * (S + 1) + [np.int32] * 3)
+        if int(fields[S + 3][0]) != RANS_K:
+            raise AssertionError(f"blob K = {int(fields[S + 3][0])}, expected {RANS_K}")
+        for i in range(S):
+            y_dev.append(len(bytes(fields[i][0])))
+            y_host.append(len(bytes(PackedTensors(host).unpack_one(i, object)[0])))
+            if y_dev[-1] > 1.1 * y_host[-1] + 4 * RANS_K + 16:
+                raise AssertionError(f"y stream {i}: {y_dev[-1]} B vs host string "
+                                     f"{y_host[-1]} B")
     if not np.array_equal(out, host_out):
         raise AssertionError("device-coded reconstruction differs from the host coder's")
     if codec.compress_batch(images, coder="device") != blobs:
@@ -723,9 +772,9 @@ def phase_codec_device(codec, images, host_blobs, host_out,
     if not np.array_equal(codec.decompress(blobs[0]), out[0]):
         raise AssertionError("batch-1 decode differs from the batch-8 decode")
     bpp = 8.0 * sum(len(b) for b in blobs) / (BATCH * HEIGHT * WIDTH)
-    log(f"  5-field blobs, K=128 (no overflow fall-back); reconstruction == host "
+    log(f"  {S + 4}-field blobs, K={RANS_K} (no overflow fall-back); reconstruction == host "
         f"coder's (PSNR {float(np.mean(psnr_np(out, images))):.3f} dB); {bpp:.4f} bpp; "
-        f"y stream {sum(y_dev)} B vs host y strings {sum(y_host)} B "
+        f"{S} y stream(s) an image, {sum(y_dev)} B vs host y strings {sum(y_host)} B "
         f"({sum(y_dev) / sum(y_host):.4f}x); re-compress byte-identical; "
         f"batch-1 decode == batch-8 row 0")
     return launches
@@ -927,14 +976,16 @@ def check_step_against_cpu(make_model, make_loss_fn, label: str) -> float:
     return errs[worst]
 
 
-def count_step_launches(model, make_loss_fn, label: str) -> dict:
+def count_step_launches(model, make_loss_fn, label: str, gdn: int = 6,
+                        tcfg=None) -> dict:
     """A training main path's run: one train_step of a batch of 8 of
-    ``model``, the counts set to 0 just before and read just after."""
+    ``model`` (Adam as ``tcfg`` sets it), the counts set to 0 just before
+    and read just after; ``gdn`` K1 launches expected."""
     from compression_tpu_torch.codec import rans
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn
     from compression_tpu_torch.models import common
 
-    tcfg = common.TrainConfig()
+    tcfg = tcfg or common.TrainConfig()
     model = model.to(DEVICE)
     optimizer = common.make_optimizer(model, tcfg)
     loss_fn = make_loss_fn(model)
@@ -949,8 +1000,9 @@ def count_step_launches(model, make_loss_fn, label: str) -> dict:
                 "rans_decode": rans.rans_decode.launches}
     log(f"  {label} one training step of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}: launches "
         f"{launches} (loss {loss.item():.4f})")
-    if launches != {"gdn": 6, "rans_encode": 0, "rans_decode": 0}:
-        raise AssertionError(f"{label}: expected K1 6, K3 0, K2 0 launches, saw {launches}")
+    if launches != {"gdn": gdn, "rans_encode": 0, "rans_decode": 0}:
+        raise AssertionError(f"{label}: expected K1 {gdn}, K3 0, K2 0 launches, "
+                             f"saw {launches}")
     return launches
 
 
@@ -1323,8 +1375,8 @@ def phase_factorized(card: str) -> dict:
     return results
 
 
-def time_quantization_offset(model, reps: int = 20) -> dict:
-    """10a: the quantization-offset root-find ``side_em.quantize(z)`` runs
+def time_quantization_offset(model, label: str, reps: int = 20) -> dict:
+    """10a, 12a: the quantization-offset root-find ``side_em.quantize(z)`` runs
     every training step (plain torch ops on the prior's device): the host
     syncs it makes, its wall time, and its offsets against the same
     root-find on the CPU."""
@@ -1352,21 +1404,20 @@ def time_quantization_offset(model, reps: int = 20) -> dict:
     ms = 1e3 * (time.perf_counter() - t0) / reps
     cpu = ContinuousBatchedEntropyModel(model.hyperprior(device="cpu"), coding_rank=3)
     diff = (offset.cpu() - cpu.quantization_offset()).abs().max().item()
-    log(f"  10a quantization offset (the root-find of side_em.quantize, "
+    log(f"  {label} quantization offset (the root-find of side_em.quantize, "
         f"{model.config.num_hyperlatents} channels): {ms:.3f} ms a call, {syncs} host syncs "
         f"a call; offsets within {diff:.2e} of the CPU's")
     return dict(ms=ms, syncs=syncs, max_abs_diff_vs_cpu=diff)
 
 
-def phase_mbt2018(card: str, reps: int, batches: int) -> dict:
-    """Phase 10: mbt2018-mean at full width: train_model from the seed, a
-    card-against-CPU step, the codec with both coders over the 8 images, K3
-    and K2 on its symbols and rows, throughput and a profile."""
-    from compression_tpu_torch.models import common, mbt2018
+def train_from_seed(model, loss_fn, steps: int, label: str, card: str, **tcfg_kw) -> dict:
+    """``steps`` of train_model from ``model``'s seeded init on fresh
+    synthetic crops (``TrainConfig`` fields from ``tcfg_kw``): every loss
+    finite and the mean of the last 10 below the mean of the first 10; ms a
+    step, steps/s and img/s over steps 21 on (the hook reads every loss:
+    one sync a step)."""
+    from compression_tpu_torch.models import common
 
-    log(f"mbt2018-mean at full width (phase 10; {card}):")
-    cfg = mbt2018_config()
-    model = mbt2018.MBT2018Model(cfg, seed=0)
     seen, marks = {}, {}
 
     def hook(step, m):
@@ -1374,23 +1425,36 @@ def phase_mbt2018(card: str, reps: int, batches: int) -> dict:
         marks[step] = time.perf_counter()
 
     with contextlib.redirect_stdout(io.StringIO()):  # its line a step
-        common.train_model(model, mbt2018.make_loss_fn(model),
-                           common.TrainConfig(steps=MBT_STEPS, log_every=1, seed=0),
+        common.train_model(model, loss_fn,
+                           common.TrainConfig(steps=steps, log_every=1, seed=0, **tcfg_kw),
                            hooks=hook, device=DEVICE)
     losses = np.array([seen[k] for k in sorted(seen)])
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
-    step_ms = 1e3 * (marks[MBT_STEPS] - marks[20]) / (MBT_STEPS - 20)
+    step_ms = 1e3 * (marks[steps] - marks[20]) / (steps - 20)
     train = dict(first=first, last=last, step_ms=step_ms, steps_per_s=1e3 / step_ms,
                  img_per_s=TRAIN_BATCH * 1e3 / step_ms)
-    log(f"  10a train_model, {MBT_STEPS} steps from the seed on fresh {TRAIN_BATCH}x"
+    log(f"  {label} train_model, {steps} steps from the seed on fresh {TRAIN_BATCH}x"
         f"{TRAIN_PATCH}x{TRAIN_PATCH} synthetic crops ({card}): mean loss of the first 10 "
-        f"{first:.4f}, of the last 10 {last:.4f} (step 1 {losses[0]:.4f}, step {MBT_STEPS} "
+        f"{first:.4f}, of the last 10 {last:.4f} (step 1 {losses[0]:.4f}, step {steps} "
         f"{losses[-1]:.4f}); {step_ms:.2f} ms a step, {train['steps_per_s']:.3f} steps/s, "
-        f"{train['img_per_s']:.2f} img/s over steps 21-{MBT_STEPS} (the hook reads every "
+        f"{train['img_per_s']:.2f} img/s over steps 21-{steps} (the hook reads every "
         f"loss: one sync a step)")
-    if len(losses) != MBT_STEPS or not np.isfinite(losses).all() or not last < first:
-        raise AssertionError("10a: missing or non-finite losses, or the loss did not fall")
-    train["quantization_offset"] = time_quantization_offset(model)
+    if len(losses) != steps or not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"{label}: missing or non-finite losses, or the loss did not fall")
+    return train
+
+
+def phase_mbt2018(card: str, reps: int, batches: int) -> dict:
+    """Phase 10: mbt2018-mean at full width: train_model from the seed, a
+    card-against-CPU step, the codec with both coders over the 8 images, K3
+    and K2 on its symbols and rows, throughput and a profile."""
+    from compression_tpu_torch.models import mbt2018
+
+    log(f"mbt2018-mean at full width (phase 10; {card}):")
+    cfg = mbt2018_config()
+    model = mbt2018.MBT2018Model(cfg, seed=0)
+    train = train_from_seed(model, mbt2018.make_loss_fn(model), MBT_STEPS, "10a", card)
+    train["quantization_offset"] = time_quantization_offset(model, "10a")
     train["launches"] = count_step_launches(mbt2018.MBT2018Model(cfg, seed=1),
                                             mbt2018.make_loss_fn, "10a")
     small = mbt2018.Config(num_filters=32, num_latents=32, num_hyperlatents=32)
@@ -1417,6 +1481,187 @@ def phase_mbt2018(card: str, reps: int, batches: int) -> dict:
                       top=10)
     return dict(train=train, host_launches=host_launches, launches=launches,
                 k1_max_abs_err=k1_err, rans=rans_k, throughput=rates)
+
+
+# -- phases 11-12: b2018 and ms2020 at full width --------------------------------
+
+B2018_STEPS = 100   # phase 11: steps of train_model from the seed
+MS2020_STEPS = 100  # phase 12: the same
+
+
+def b2018_configs() -> dict:
+    """Phase 11's models: b2018-gdn at 192 filters and b2018-leaky_relu at
+    128 (registry.py:245-249), 4 rate points each."""
+    from compression_tpu_torch.models import b2018
+
+    return {"b2018-gdn-192": b2018.Config(num_filters=192, model_name="b2018-gdn-192"),
+            "b2018-leaky_relu-128": b2018.Config(activation="leaky_relu",
+                                                 model_name="b2018-leaky_relu-128")}
+
+
+def phase_b2018(card: str) -> dict:
+    """Phase 11: the two b2018 models at full width: train_model from the
+    seed, the launches of a training step, then the one-image codec over
+    the 8 images at each quality."""
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.models import b2018, common
+    from compression_tpu_torch.models.device_coding import num_fields
+    from compression_tpu_torch.util import PackedTensors
+    from compression_tpu_torch.util.image import psnr_np
+
+    log(f"b2018 variable-rate codecs (phase 11; {card}):")
+    images = structured_images()
+    results = {}
+    for name, cfg in b2018_configs().items():
+        gdn = 4 if cfg.activation == "gdn" else 0
+        model = b2018.B2018Model(cfg, seed=0)
+        train = train_from_seed(model, b2018.make_loss_fn(model), B2018_STEPS, f"11 {name}",
+                                card, lr_scales=b2018.LR_SCALES)
+        train["launches"] = count_step_launches(
+            b2018.B2018Model(cfg, seed=1), b2018.make_loss_fn, f"11 {name}", gdn=gdn,
+            tcfg=common.TrainConfig(lr_scales=b2018.LR_SCALES))
+        codec = b2018.Codec(model, device=DEVICE)
+        codec.decompress(codec.compress(images[0], quality=1))  # warm-up
+        # The path's run: the counts cover exactly one compress + decompress.
+        fused_gdn.launches = 0
+        blob = codec.compress(images[0], quality=cfg.num_qualities)
+        first = codec.decompress(blob)
+        launches = {"gdn": fused_gdn.launches}
+        if launches["gdn"] != gdn:
+            raise AssertionError(f"11 {name}: expected {gdn} K1 launches, saw {launches}")
+        per_q = {}
+        for quality in range(1, cfg.num_qualities + 1):
+            t0 = time.perf_counter()
+            blobs = [codec.compress(image, quality=quality) for image in images]
+            t1 = time.perf_counter()
+            out = np.stack([codec.decompress(b) for b in blobs])
+            t2 = time.perf_counter()
+            if [codec.compress(image, quality=quality) for image in images] != blobs:
+                raise AssertionError(f"11 {name} q{quality}: re-compression is not "
+                                     "byte-identical")
+            if out.shape != images.shape or any(
+                    num_fields(b) != 3 or PackedTensors(b).model != cfg.model_name
+                    or int(PackedTensors(b).unpack_one(2, np.int32)[2]) != quality - 1
+                    for b in blobs):
+                raise AssertionError(f"11 {name} q{quality}: bad output or blob format")
+            per_q[quality] = dict(
+                psnr=float(np.mean(psnr_np(out, images))),
+                bpp=8.0 * sum(len(b) for b in blobs) / (BATCH * HEIGHT * WIDTH),
+                compress_img_per_s=BATCH / (t1 - t0), decompress_img_per_s=BATCH / (t2 - t1))
+        if blobs[0] != blob or not np.array_equal(out[0], first):
+            raise AssertionError(f"11 {name}: a second round trip differs from the first")
+        log(f"  11 {name} codec ({card}), {BATCH} images of {HEIGHT}x{WIDTH} one by one at "
+            f"each quality: K1 launches {launches['gdn']} a round trip; 3-field blobs "
+            f"carrying q, re-compress byte-identical; " + "; ".join(
+                f"q{q} {r['bpp']:.4f} bpp {r['psnr']:.3f} dB ({r['compress_img_per_s']:.3f} / "
+                f"{r['decompress_img_per_s']:.3f} img/s)" for q, r in per_q.items()))
+        if not (per_q[cfg.num_qualities]["bpp"] > per_q[1]["bpp"]
+                and all(np.isfinite(r["psnr"]) for r in per_q.values())):
+            raise AssertionError(f"11 {name}: bpp at q4 not above bpp at q1")
+        k1_err = (check_k1_on_path(codec.model, lambda: codec.decompress(
+            codec.compress(images[0], quality=2)), f"11 {name}") if gdn else None)
+        small = check_small_against_cpu(b2018, codec.model, hw=(96, 130), quality=2)
+        if small != gdn:
+            raise AssertionError(f"11 {name}: the small round trip launched K1 {small} times")
+        results[name] = dict(launches=launches, train=train, qualities=per_q,
+                             k1_max_abs_err=k1_err)
+        del codec, model
+    return results
+
+
+def ms2020_config():
+    """Phase 12's model: ms2020-cc10 at 192/320/192, 10 slices of 32
+    (registry.py:238)."""
+    from compression_tpu_torch.models import ms2020
+
+    return ms2020.Config()
+
+
+def time_slice_chain(codec, images) -> dict:
+    """12e: an encode's device chain over the batch: the front (analysis,
+    hyper-analysis, z symbols) alone and the whole chain with the per-image
+    slice chain (the supports, then each slice's mean, scale and LRP
+    transforms, image by image): the host's enqueue ms, the ms until the
+    device is done, and the device activities the profiler counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from compression_tpu_torch.util.image import pad_to_multiple_np
+
+    x = pad_to_multiple_np(images, codec.cfg.downscale)[0]
+    runs = {"front": lambda: codec._front(codec._to_device(x)),
+            "chain": lambda: codec._encode_slices(images)}
+    out = {}
+    for name, run in runs.items():
+        with codec._on_device():
+            run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        out[name] = dict(enqueue_ms=1e3 * (t1 - t0), done_ms=1e3 * (t2 - t0),
+                         device_activities=len(kernels),
+                         busy_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+    per_image = {k: (out["chain"][k] - out["front"][k]) / BATCH
+                 for k in ("enqueue_ms", "done_ms", "device_activities", "busy_ms")}
+    log(f"  12e encode chain of {BATCH}x{HEIGHT}x{WIDTH}: front {out['front']['enqueue_ms']:.2f} ms "
+        f"to enqueue, {out['front']['device_activities']} device activities, busy "
+        f"{out['front']['busy_ms']:.2f} ms; with the slice chain {out['chain']['enqueue_ms']:.2f} "
+        f"ms to enqueue, done after {out['chain']['done_ms']:.2f} ms, "
+        f"{out['chain']['device_activities']} device activities, busy "
+        f"{out['chain']['busy_ms']:.2f} ms; the slice chain an image: "
+        f"{per_image['device_activities']:.1f} device activities, "
+        f"{per_image['enqueue_ms']:.3f} ms of host enqueue, {per_image['busy_ms']:.3f} ms "
+        f"of device work")
+    return dict(out, per_image=per_image)
+
+
+def phase_ms2020(card: str, reps: int, batches: int) -> dict:
+    """Phase 12: ms2020-cc10 at full width: train_model from the seed, the
+    codec with both coders over the 8 images, K3 and K2 on slice 0's
+    symbols and rows, throughput, the slice chain's cost and a profile."""
+    from compression_tpu_torch.models import ms2020
+
+    log(f"ms2020-cc10 at full width (phase 12; {card}):")
+    cfg = ms2020_config()
+    model = ms2020.MS2020Model(cfg, seed=0)
+    train = train_from_seed(model, ms2020.make_loss_fn(model), MS2020_STEPS, "12a", card)
+    offset = train["quantization_offset"] = time_quantization_offset(model, "12a")
+    log(f"  12a the root-find's share of a step: {100 * offset['ms'] / train['step_ms']:.1f}%")
+    train["launches"] = count_step_launches(ms2020.MS2020Model(cfg, seed=1),
+                                            ms2020.make_loss_fn, "12a")
+
+    codec = ms2020.Codec(model, device=DEVICE)
+    images = structured_images()
+    # No CPU check of the reconstruction here: a latent at a rounding tie
+    # may round the other way on the card and then steers every later
+    # slice (tests/test_torch_cuda.py holds each slice's transforms to the
+    # CPU on the same inputs instead).
+    host_blobs, host_out, host_launches = phase_codec(
+        codec, images, ms2020, label="12b ms2020 codec", min_psnr=None, cpu_check=False)
+    launches = phase_codec_device(codec, images, host_blobs, host_out,
+                                  label="12b ms2020 codec (device coder)")
+    k1_err = check_k1_on_path(
+        codec.model, lambda: codec.decompress_batch(codec.compress_batch(images, coder="device")),
+        "12b ms2020")
+    log("12c K3/K2 on ms2020's slice 0 (symbols and rows):")
+    rans_k = phase_rans_kernels(codec, images, reps, main_path=False)
+    rates = {coder: phase_throughput(codec, images, batches, card, coder,
+                                     label="12d ms2020 throughput")
+             for coder in ("host", "device")}
+    chain = time_slice_chain(codec, images)
+    for coder in ("host", "device"):
+        phase_profile(f"12f ms2020, {coder} coder, compress_batch + decompress_batch of {BATCH}",
+                      lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)),
+                      top=10)
+    return dict(train=train, host_launches=host_launches, launches=launches,
+                k1_max_abs_err=k1_err, rans=rans_k, throughput=rates, chain=chain)
 
 
 def main() -> int:
@@ -1467,6 +1712,8 @@ def main() -> int:
     training = phase_training(model, card, args.reps)
     factorized = phase_factorized(card)
     mbt = phase_mbt2018(card, args.reps, args.batches)
+    b2018s = phase_b2018(card)
+    ms = phase_ms2020(card, args.reps, args.batches)
 
     # Each kernel's launches on every path, each path counted on its own.
     paths = {
@@ -1477,6 +1724,11 @@ def main() -> int:
         "mbt2018 codec, host coder": mbt["host_launches"],
         "mbt2018 codec, device coder": mbt["launches"],
         "mbt2018 train step": mbt["train"]["launches"],
+        **{f"{name} codec (one image)": r["launches"] for name, r in b2018s.items()},
+        **{f"{name} train step": r["train"]["launches"] for name, r in b2018s.items()},
+        "ms2020 codec, host coder": ms["host_launches"],
+        "ms2020 codec, device coder": ms["launches"],
+        "ms2020 train step": ms["train"]["launches"],
     }
 
     kernels = [{
@@ -1510,8 +1762,9 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes rANS
             "train_launches": training["launches"][name],
             "paths": {path: counts.get(name, 0) for path, counts in paths.items()},
-            "mbt2018": {k: mbt["rans"][name][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms", "steps")},
+            **{family: {k: r["rans"][name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms", "steps")}
+               for family, r in (("mbt2018", mbt), ("ms2020", ms))},
         })
     train_line = {
         "batch": TRAIN_BATCH, "patch": TRAIN_PATCH,
@@ -1525,6 +1778,12 @@ def main() -> int:
         "mbt2018-mean": {"train": {k: v for k, v in mbt["train"].items() if k != "launches"},
                          "throughput": mbt["throughput"],
                          "k1_max_abs_err": mbt["k1_max_abs_err"]},
+        **{name: {k: ({kk: vv for kk, vv in v.items() if kk != "launches"} if k == "train"
+                      else v) for k, v in r.items() if k != "launches"}
+           for name, r in b2018s.items()},
+        "ms2020-cc10": {"train": {k: v for k, v in ms["train"].items() if k != "launches"},
+                        "throughput": ms["throughput"], "chain": ms["chain"],
+                        "k1_max_abs_err": ms["k1_max_abs_err"]},
     }
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "training": train_line, "families": families}))

@@ -12,14 +12,16 @@ its module paths so every counterpart is easy to find:
                    and CDF tables
   codec/           native C++ range coder (ctypes) + host API; the device
                    rANS coder (kernels K3/K2) and its NumPy spec
-  models/          bmshj2018 scale hyperprior and mbt2018 mean-scale
-                   hyperprior (Codecs with the host and device coders;
-                   training), bls2017 factorized prior in its two archs
-                   (bls2017, bmshj2018-factorized; one-image Codec;
-                   training), codec_base.py (what the codecs share),
+  models/          bmshj2018 scale hyperprior, mbt2018 mean-scale
+                   hyperprior and ms2020 CHARM (Codecs with the host and
+                   device coders; training), bls2017 factorized prior in
+                   its two archs (bls2017, bmshj2018-factorized) and the
+                   variable-rate b2018 (one-image Codecs; training),
+                   codec_base.py (what the codecs share),
                    device_coding.py (blob formats, the device coder's
                    stages), common.py (train loop, data, checkpoints)
-  parallel/        double-buffered device/host coding pipeline
+  parallel/        double-buffered device/host coding pipeline, staggered
+                   decode, CHARM's pipelined batch decode
   util/            PackedTensors, image padding and metrics, numeric, stage timing
   csrc/            CUDA C++ kernels (gdn.cu, rans.cu), built with nvcc at first use
   convert.py       weight bridge to and from the JAX package's flax checkpoints

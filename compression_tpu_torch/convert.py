@@ -9,15 +9,18 @@ in both directions.
   :func:`pack_msgpack` is the matching writer: what it writes, flax's
   ``serialization.from_bytes`` reads.
 * :func:`params_from_numpy` maps such a tree (``params/params/...`` or any
-  suffix of it) onto a model's state dict, from the tree's own top-level
-  keys: the transforms (``analysis``, ``synthesis``, ``hyper_analysis``,
-  ``hyper_synthesis``, whichever the model has) and a DeepFactorized prior
-  holder (``prior`` in bls2017, ``hyperprior`` in the hyperprior models).
-  Conv kernels ``(kh, kw, cin, cout)`` become OIHW ``(cout, cin, kh, kw)``;
-  GDN ``beta``/``gamma`` stay raw (sqrt space, reparameterized at call
-  time); the DeepFactorized ``matrices`` / ``biases`` / ``factors`` lists
-  map as they are. :func:`params_to_numpy` is its inverse, the flax param
-  tree of a state dict (also used for per-parameter optimizer moments).
+  suffix of it) onto a model's state dict. Each top-level holder is
+  recognised by its structure, not its name: a dict with a
+  ``deep_factorized`` child is a prior (``prior``, ``hyperprior``); a dict
+  of layers with ``kernel`` / ``bias`` / ``beta`` / ``gamma`` leaves is a
+  transform (``analysis``, ``mean_t3``, ...); a bare array is a top-level
+  parameter (b2018's ``gain``). Conv kernels ``(kh, kw, cin, cout)``
+  become OIHW ``(cout, cin, kh, kw)``; GDN ``beta``/``gamma`` stay raw
+  (sqrt space, reparameterized at call time); the DeepFactorized
+  ``matrices`` / ``biases`` / ``factors`` lists map as they are.
+  :func:`params_to_numpy` is its inverse, the flax param tree of a state
+  dict (also used for per-parameter optimizer moments), by the same rule
+  on the state dict's keys.
 """
 
 from __future__ import annotations
@@ -190,9 +193,19 @@ def _as_list(value):
     return list(value)
 
 
-_TRANSFORMS = ("analysis", "synthesis", "hyper_analysis", "hyper_synthesis")
-_PRIORS = ("prior", "hyperprior")  # DeepFactorized holders
-_PRIOR_FIELDS = ("matrices", "biases", "factors")
+_PRIOR_FIELDS = ("matrices", "biases", "factors")  # DeepFactorized lists
+_LAYER_LEAVES = ("kernel", "bias", "beta", "gamma")
+
+
+def _is_prior_key(parts) -> bool:
+    """A state-dict key of a DeepFactorized holder: ``<holder>.<field>.<i>``."""
+    return len(parts) == 3 and parts[1] in _PRIOR_FIELDS
+
+
+def _is_transform(holder) -> bool:
+    return bool(holder) and all(
+        isinstance(leaves, dict) and leaves and set(leaves) <= set(_LAYER_LEAVES)
+        for leaves in holder.values())
 
 
 def _array(value) -> torch.Tensor:
@@ -210,23 +223,23 @@ def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         tree = tree["params"]
     state: Dict[str, torch.Tensor] = {}
     for name, holder in tree.items():
-        if name in _PRIORS:
+        if not isinstance(holder, dict):  # a top-level parameter array
+            state[name] = _array(holder)
+        elif "deep_factorized" in holder:
             prior = holder["deep_factorized"]
             for field in _PRIOR_FIELDS:
                 for i, value in enumerate(_as_list(prior[field])):
                     state[f"{name}.{field}.{i}"] = _array(value)
-            continue
-        if name not in _TRANSFORMS:
+        elif _is_transform(holder):
+            for layer, leaves in holder.items():
+                for leaf, value in leaves.items():
+                    key = f"{name}.{layer}"
+                    if leaf == "kernel":
+                        state[f"{key}.weight"] = kernel_to_torch(value)
+                    else:
+                        state[f"{key}.{leaf}"] = _array(value)
+        else:
             raise KeyError(f"unexpected top-level parameter {name!r}")
-        for layer, leaves in holder.items():
-            for leaf, value in leaves.items():
-                key = f"{name}.{layer}"
-                if leaf == "kernel":
-                    state[f"{key}.weight"] = kernel_to_torch(value)
-                elif leaf in ("bias", "beta", "gamma"):
-                    state[f"{key}.{leaf}"] = _array(value)
-                else:
-                    raise KeyError(f"unexpected leaf {name}/{layer}/{leaf}")
     return state
 
 
@@ -238,17 +251,19 @@ def params_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for key, value in state.items():
         parts = key.split(".")
-        if parts[0] in _TRANSFORMS:
+        if len(parts) == 1:
+            tree[key] = _numpy(value)
+        elif _is_prior_key(parts):
+            name, field, i = parts
+            prior = tree.setdefault(name, {}).setdefault("deep_factorized", {})
+            prior.setdefault(field, {})[i] = _numpy(value)
+        elif len(parts) == 3 and parts[2] in ("weight",) + _LAYER_LEAVES[1:]:
             name, layer, leaf = parts
             if leaf == "weight":
                 leaf, arr = "kernel", kernel_from_torch(value)
             else:
                 arr = _numpy(value)
             tree.setdefault(name, {}).setdefault(layer, {})[leaf] = arr
-        elif parts[0] in _PRIORS:
-            name, field, i = parts
-            prior = tree.setdefault(name, {}).setdefault("deep_factorized", {})
-            prior.setdefault(field, {})[i] = _numpy(value)
         else:
             raise KeyError(f"unexpected parameter {key}")
     return tree
@@ -259,7 +274,7 @@ def flax_key_path(name: str) -> str:
     it (``"params/analysis/conv0/kernel"``; a DeepFactorized field by its
     index: ``"params/hyperprior/deep_factorized/0/2"`` for matrices[2])."""
     parts = name.split(".")
-    if parts[0] in _PRIORS:
+    if _is_prior_key(parts):
         holder, field, i = parts
         return f"params/{holder}/deep_factorized/{_PRIOR_FIELDS.index(field)}/{i}"
     if parts[-1] == "weight":

@@ -57,11 +57,16 @@ class DeepFactorizedPrior(nn.Module):
                     torch.zeros(batch_shape + (filters[i + 1], 1))
                 ))
 
-    def forward(self, noisy: bool = True, device=None):
+    def forward(self, noisy: bool = True, device=None, index=None):
         """The distribution; with ``device``, over detached copies of the
-        parameters there (the host table build passes ``"cpu"``)."""
+        parameters there (the host table build passes ``"cpu"``); with
+        ``index``, of the batch entries ``param[index]`` only (b2018 takes
+        one quality's row of its (quality, channel) prior, or one row per
+        example)."""
         fields = (self.matrices, self.biases, self.factors)
         if device is not None:
             fields = [[p.detach().to(device) for p in f] for f in fields]
+        if index is not None:
+            fields = [[p[index] for p in f] for f in fields]
         prior = DeepFactorized(*(tuple(f) for f in fields))
         return UniformNoiseAdapter(prior) if noisy else prior

@@ -64,16 +64,38 @@ class Config:
         return self.num_latents or self.num_filters
 
 
-class AnalysisTransform(nn.Module):
-    """x -> y: 9x9/4 then two 5x5/2 SignalConvs with GDN between."""
+class LeakyReLU(nn.Module):
+    """``where(x >= 0, x, slope * x)``, as ``flax.linen.leaky_relu``: at an
+    exact 0 the gradient is 1 (``torch.nn.LeakyReLU`` passes ``slope``)."""
 
-    def __init__(self, num_filters: int, gen: torch.Generator):
+    def __init__(self, slope: float = 0.2):
+        super().__init__()
+        self.slope = slope
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.slope * x)
+
+
+def _activation(name: str, channels: int, inverse: bool) -> nn.Module:
+    if name == "gdn":
+        return GDN(channels, inverse=inverse)
+    if name == "leaky_relu":
+        return LeakyReLU(0.2)
+    raise ValueError(f"unknown activation {name!r} (gdn | leaky_relu)")
+
+
+class AnalysisTransform(nn.Module):
+    """x -> y: 9x9/4 then two 5x5/2 SignalConvs with GDN (or b2018's
+    leaky ReLU) between."""
+
+    def __init__(self, num_filters: int, gen: torch.Generator,
+                 activation: str = "gdn"):
         super().__init__()
         self.conv0 = SignalConv2D(3, num_filters, 9, corr=True, strides_down=4,
                                   padding="same_zeros", use_bias=True, generator=gen)
-        self.gdn0 = GDN(num_filters)
+        self.gdn0 = _activation(activation, num_filters, False)
         self.conv1 = bmshj2018._down(num_filters, num_filters, 5, True, gen)
-        self.gdn1 = GDN(num_filters)
+        self.gdn1 = _activation(activation, num_filters, False)
         self.conv2 = bmshj2018._down(num_filters, num_filters, 5, False, gen)
 
     def forward(self, x):
@@ -81,15 +103,16 @@ class AnalysisTransform(nn.Module):
 
 
 class SynthesisTransform(nn.Module):
-    """y_hat -> x_hat: the mirror of the analysis, with IGDN and up-sampling
-    (the last convolution at stride 4)."""
+    """y_hat -> x_hat: the mirror of the analysis, with IGDN (or the leaky
+    ReLU) and up-sampling (the last convolution at stride 4)."""
 
-    def __init__(self, num_filters: int, gen: torch.Generator):
+    def __init__(self, num_filters: int, gen: torch.Generator,
+                 activation: str = "gdn"):
         super().__init__()
         self.conv0 = bmshj2018._up(num_filters, num_filters, 5, gen)
-        self.igdn0 = GDN(num_filters, inverse=True)
+        self.igdn0 = _activation(activation, num_filters, True)
         self.conv1 = bmshj2018._up(num_filters, num_filters, 5, gen)
-        self.igdn1 = GDN(num_filters, inverse=True)
+        self.igdn1 = _activation(activation, num_filters, True)
         self.conv2 = SignalConv2D(num_filters, 3, 9, corr=False, strides_up=4,
                                   padding="same_zeros", use_bias=True, generator=gen)
 

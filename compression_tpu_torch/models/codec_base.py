@@ -8,7 +8,8 @@ codecs (bmshj2018, mbt2018), the batch API and the host coder's stages.
   and the synthesis to uint8. bls2017's one-image codec is one.
 * :class:`HyperpriorCodec`: z coded with the factorized hyperprior on the
   host, y with the scale-indexed tables by either coder (around a predicted
-  mean where the family has one); ``compress_batch``
+  mean where the family has one), as one stream an image or, in ms2020, one
+  a channel slice (``_streams``); ``compress_batch``
   / ``decompress_batch``, the pipelined ``compress_iter`` /
   ``decompress_iter``, and both coders' stages (the device coder's from
   :mod:`compression_tpu_torch.models.device_coding`). A family gives
@@ -20,7 +21,6 @@ codecs (bmshj2018, mbt2018), the batch API and the host coder's stages.
 from __future__ import annotations
 
 import contextlib
-import functools
 from typing import List
 
 import numpy as np
@@ -94,8 +94,9 @@ class DeviceCodec:
         packed.pack(fields)
         return packed.string
 
-    def _synthesize(self, y_hat: torch.Tensor) -> torch.Tensor:
-        x = self.model.synthesize(y_hat.to(torch.float32))
+    def _synthesize(self, y_hat: torch.Tensor, *args) -> torch.Tensor:
+        """y_hat (and what else the model's ``synthesize`` takes) -> uint8."""
+        x = self.model.synthesize(y_hat.to(torch.float32), *args)
         return torch.clamp(torch.round(x * 255.0), 0, 255).to(torch.uint8)
 
 
@@ -155,11 +156,18 @@ class HyperpriorCodec(DeviceCodec):
         values = values.to(torch.float32)
         return values if mu is None else values + mu
 
+    def _streams(self, a):
+        """The y streams of a blob, as parts of an (n, h, w, C) array of
+        symbols or rows: one stream of all C channels here (ms2020 codes one
+        a channel slice)."""
+        return [a]
+
     def _pack(self, y_streams, z_strings, hw, zshape, K=None) -> List[bytes]:
-        """One blob an image: 4 fields, plus ``[K]`` for a rANS y stream."""
+        """One blob an image: its y streams (``y_streams[b]``, one bytes
+        object for each), z, the shapes, and ``[K]`` for rANS y streams."""
         blobs = []
-        for y, z in zip(y_streams, z_strings):
-            fields = [y, z, np.array(hw, np.int32), np.array(zshape, np.int32)]
+        for ys, z in zip(y_streams, z_strings):
+            fields = [*ys, z, np.array(hw, np.int32), np.array(zshape, np.int32)]
             if K is not None:
                 fields.append(np.array([K], np.int32))
             blobs.append(self._blob(fields))
@@ -190,6 +198,20 @@ class HyperpriorCodec(DeviceCodec):
 
     def _finish_encode(self, w: Work) -> List[bytes]:
         """Host stage: wait for the device chain, range-code, pack blobs."""
+        y_sym, z_sym, rows = self._fetch_symbols(w)
+        n = w.n
+        zshape = z_sym.shape[1:3]
+        with self.timer.stage("enc/code_z"):
+            z_strings = self.side_em.compress_symbols(z_sym)
+        with self.timer.stage("enc/code_y"):
+            streams = [self.em.compress_symbols(s.reshape(n, -1), r.reshape(n, -1))
+                       for s, r in zip(self._streams(y_sym), self._streams(rows))]
+        with self.timer.stage("enc/pack"):
+            return self._pack(list(zip(*streams)), z_strings, w.hw, zshape)
+
+    def _fetch_symbols(self, w: Work):
+        """Waits for the encode chain; the y and z symbols (int32) and the
+        rows as NumPy arrays."""
         with self.timer.stage("enc/fetch"):
             if w.event is not None:
                 w.event.synchronize()
@@ -201,16 +223,7 @@ class HyperpriorCodec(DeviceCodec):
                 y_sym = (w.y8 if fit8 else w.y32).cpu().numpy().astype(np.int32)
                 z_sym = w.z16.cpu().numpy().astype(np.int32)
             rows = w.rows.cpu().numpy()
-        n = w.n
-        zshape = z_sym.shape[1:3]
-        with self.timer.stage("enc/code_z"):
-            z_strings = self.side_em.compress_symbols(z_sym)
-        with self.timer.stage("enc/code_y"):
-            y_strings = self.em.compress_symbols(
-                y_sym.reshape(n, -1), rows.reshape(n, -1)
-            )
-        with self.timer.stage("enc/pack"):
-            return self._pack(y_strings, z_strings, w.hw, zshape)
+        return y_sym, z_sym, rows
 
     def _dispatch_decode(self, blobs: List[bytes]) -> Work:
         """Parse blobs, host-decode z, enqueue z_hat -> (mu, rows) and the
@@ -252,6 +265,11 @@ class HyperpriorCodec(DeviceCodec):
 
     # -- device-coded stages (rANS on the card; models/device_coding.py) -----
 
+    def _dispatch_encode_rans(self, images: np.ndarray) -> Work:
+        """The device coder's device stage (ms2020 codes one stream a
+        slice)."""
+        return device_coding.dispatch_encode_rans(self, images)
+
     def _finish_encode_rans(self, w: Work) -> List[bytes]:
         """The device coder's host stage; a family may override it (bmshj2018
         codes an overflowed batch with the host coder)."""
@@ -271,8 +289,7 @@ class HyperpriorCodec(DeviceCodec):
 
     def _enc_stages(self, coder: str):
         if coder == "device":
-            return (functools.partial(device_coding.dispatch_encode_rans, self),
-                    self._finish_encode_rans)
+            return self._dispatch_encode_rans, self._finish_encode_rans
         if coder != "host":
             raise ValueError(f"unknown coder {coder!r} (host|device)")
         return self._dispatch_encode, self._finish_encode

@@ -3,7 +3,9 @@
 
 Host-coded blobs hold 4 fields ``[y_string, z_string, xshape, zshape]``;
 device-coded (rANS) blobs hold 5, ``[y_words, z_string, xshape, zshape,
-[K]]``, so a decoder tells them apart by the field count. The y stream of
+[K]]``, so a decoder tells them apart by the field count. ms2020 codes one
+y stream a channel slice: its blobs hold ``num_slices + 3`` and
+``num_slices + 4`` fields, read by the same parser. The y stream of
 a device-coded blob is K-lane rANS (:mod:`compression_tpu_torch.codec.rans`),
 coded on the card; only its compressed words cross to the host.
 
@@ -33,7 +35,9 @@ from compression_tpu_torch.util.image import pad_to_multiple_np
 
 __all__ = [
     "rans_for",
+    "num_fields",
     "is_device_coded",
+    "parse_blobs",
     "parse_host_blobs",
     "parse_device_blobs",
     "fetch_streams",
@@ -41,6 +45,7 @@ __all__ = [
     "StreamOverflow",
     "encode_symbols",
     "dispatch_encode_rans",
+    "rans_work",
     "finish_encode_rans",
     "dispatch_decode_rans",
     "finish_decode_rans",
@@ -80,70 +85,68 @@ def rans_for(codec, N: int, K: int | None = None):
     return codec._rans_cache[key]
 
 
-def is_device_coded(blob: bytes) -> bool:
-    packed = PackedTensors(blob)
-    return len([k for k, *_ in packed.describe() if k != "MD"]) == 5
+def num_fields(blob: bytes) -> int:
+    """The tensors a blob holds (its model name aside)."""
+    return len([k for k, *_ in PackedTensors(blob).describe() if k != "MD"])
+
+
+def is_device_coded(blob: bytes, num_streams: int = 1) -> bool:
+    """Whether a blob of a codec with ``num_streams`` y streams a blob is
+    the device coder's (``num_streams + 4`` fields, the host coder's has
+    ``num_streams + 3``)."""
+    return num_fields(blob) == num_streams + 4
+
+
+def parse_blobs(blobs: List[bytes], num_streams: int = 1, device: bool = False):
+    """Unpacks one coder's blobs ``[y streams..., z_string, xshape, zshape]``
+    (``+ [K]`` for the device coder) with format/size-uniformity validation:
+    a lockstep batched decode cannot mix coder formats, image sizes or K.
+    Returns ``(streams, z_strings, xshape, zshape, K)``, ``streams[i][b]``
+    the i-th y stream of blob b (bytes; uint16 words for the device coder),
+    K None for the host coder."""
+    streams: List[list] = [[] for _ in range(num_streams)]
+    z_strings = []
+    xshape = zshape = K = None
+    for b, blob in enumerate(blobs):
+        if is_device_coded(blob, num_streams) != device:
+            raise ValueError(
+                f"blob {b} is {'host' if device else 'device'}-coded; a batched "
+                "decode cannot mix host- and device-coded bitstreams"
+            )
+        fields = PackedTensors(blob).unpack(
+            [object] * (num_streams + 1) + [np.int32] * (3 if device else 2))
+        for i in range(num_streams):
+            data = bytes(fields[i][0])
+            streams[i].append(np.frombuffer(data, np.uint16) if device else data)
+        z_strings.append(bytes(fields[num_streams][0]))
+        xs, zsh = fields[num_streams + 1], fields[num_streams + 2]
+        kk = int(fields[num_streams + 3][0]) if device else None
+        if xshape is not None and not (
+            np.array_equal(xshape, xs) and np.array_equal(zshape, zsh) and K == kk
+        ):
+            what = (f"shape/K {tuple(xs)}/{kk} vs {tuple(xshape)}/{K}" if device
+                    else f"shape {tuple(xs)} vs {tuple(xshape)}")
+            raise ValueError(
+                f"batched decode requires same-size blobs: blob {b} has {what}; "
+                "decode mixed sizes one by one"
+            )
+        xshape, zshape, K = xs, zsh, kk
+    return streams, z_strings, xshape, zshape, K
 
 
 def parse_host_blobs(blobs: List[bytes]):
-    """Unpacks host-coded 4-field blobs with format/size-uniformity
-    validation (a lockstep batched decode cannot mix coder formats or image
-    sizes). Returns ``(y_strings, z_strings, xshape, zshape)``."""
-    y_strings, z_strings = [], []
-    xshape = zshape = None
-    for b, blob in enumerate(blobs):
-        if is_device_coded(blob):
-            raise ValueError(
-                f"blob {b} is device-coded; a batched decode cannot mix "
-                "host- and device-coded bitstreams"
-            )
-        packed = PackedTensors(blob)
-        ys, zs, xs, zsh = packed.unpack([object, object, np.int32, np.int32])
-        y_strings.append(bytes(ys[0]))
-        z_strings.append(bytes(zs[0]))
-        if xshape is not None and not (
-            np.array_equal(xshape, xs) and np.array_equal(zshape, zsh)
-        ):
-            raise ValueError(
-                "batched decode requires same-size blobs: blob "
-                f"{b} has shape {tuple(xs)} vs {tuple(xshape)}; "
-                "decode mixed sizes one by one"
-            )
-        xshape, zshape = xs, zsh
-    return y_strings, z_strings, xshape, zshape
+    """Unpacks host-coded 4-field blobs (see :func:`parse_blobs`). Returns
+    ``(y_strings, z_strings, xshape, zshape)``."""
+    streams, z_strings, xshape, zshape, _ = parse_blobs(blobs)
+    return streams[0], z_strings, xshape, zshape
 
 
 def parse_device_blobs(blobs: List[bytes]):
-    """Unpacks device-coded 5-field blobs with the same validation, plus one
-    K for the batch. Returns ``(y_words, z_strings, xshape, zshape, K)``,
-    ``y_words`` as uint16 arrays."""
-    y_words, z_strings = [], []
-    xshape = zshape = None
-    K = None
-    for b, blob in enumerate(blobs):
-        if not is_device_coded(blob):
-            raise ValueError(
-                f"blob {b} is host-coded; a batched decode cannot mix "
-                "host- and device-coded bitstreams"
-            )
-        packed = PackedTensors(blob)
-        ys, zs, xs, zsh, kk = packed.unpack(
-            [object, object, np.int32, np.int32, np.int32]
-        )
-        y_words.append(np.frombuffer(bytes(ys[0]), np.uint16))
-        z_strings.append(bytes(zs[0]))
-        if xshape is not None and not (
-            np.array_equal(xshape, xs)
-            and np.array_equal(zshape, zsh)
-            and K == int(kk[0])
-        ):
-            raise ValueError(
-                "batched decode requires same-size blobs: blob "
-                f"{b} has shape/K {tuple(xs)}/{int(kk[0])} vs "
-                f"{tuple(xshape)}/{K}; decode mixed sizes one by one"
-            )
-        xshape, zshape, K = xs, zsh, int(kk[0])
-    return y_words, z_strings, xshape, zshape, K
+    """Unpacks device-coded 5-field blobs (see :func:`parse_blobs`). Returns
+    ``(y_words, z_strings, xshape, zshape, K)``, ``y_words`` as uint16
+    arrays."""
+    streams, z_strings, xshape, zshape, K = parse_blobs(blobs, device=True)
+    return streams[0], z_strings, xshape, zshape, K
 
 
 def fetch_streams(stream: torch.Tensor, lengths) -> List[bytes]:
@@ -210,19 +213,28 @@ def dispatch_encode_rans(codec, images: np.ndarray):
         n = sym.shape[0]
         enc, _dec, K, _cap = rans_for(codec, sym[0].numel())
         stream, lengths, overflow = enc(sym.reshape(n, -1), rows.reshape(n, -1))
-        return Work(
-            stream=stream, lengths=codec._to_host(lengths),
-            overflow=codec._to_host(overflow),
-            z16=codec._to_host(z_sym.to(torch.int16)),
-            fit16=codec._to_host(torch.all(torch.abs(z_sym) <= 32767)),
-            event=codec._event(), hw=hw, K=K, sym=sym, z_sym=z_sym, rows=rows,
-        )
+        return rans_work(codec, [stream], [lengths], [overflow], z_sym, hw, K,
+                         sym=sym, rows=rows)
+
+
+def rans_work(codec, streams, lengths, overflow, z_sym, hw, K, **fields) -> Work:
+    """The device coder's in-flight encode: ``streams`` ([n, cap] words, one
+    tensor for each y stream of a blob) stay on the device; their lengths
+    and overflow flags and the z symbols (int16 where they fit) start their
+    copies to the host, then an event."""
+    return Work(
+        streams=streams, lengths=codec._to_host(torch.stack(lengths)),
+        overflow=codec._to_host(torch.stack(overflow)),
+        z16=codec._to_host(z_sym.to(torch.int16)),
+        fit16=codec._to_host(torch.all(torch.abs(z_sym) <= 32767)),
+        event=codec._event(), hw=hw, K=K, z_sym=z_sym, **fields,
+    )
 
 
 def finish_encode_rans(codec, w) -> List[bytes]:
     """Host stage: wait, raise :class:`StreamOverflow` on an overflowed
     stream (as the JAX package's mean-scale codecs do), range-code z, fetch
-    the y words, pack 5-field blobs."""
+    the y words (one copy for each stream), pack the blobs (``[K]`` last)."""
     with codec.timer.stage("enc/fetch"):
         if w.event is not None:
             w.event.synchronize()
@@ -236,9 +248,9 @@ def finish_encode_rans(codec, w) -> List[bytes]:
     with codec.timer.stage("enc/code_z"):
         z_strings = codec.side_em.compress_symbols(z_sym)
     with codec.timer.stage("enc/fetch_stream"):
-        streams = fetch_streams(w.stream, lengths)
+        streams = [fetch_streams(s, lens) for s, lens in zip(w.streams, lengths)]
     with codec.timer.stage("enc/pack"):
-        return codec._pack(streams, z_strings, w.hw, z_sym.shape[1:3], w.K)
+        return codec._pack(list(zip(*streams)), z_strings, w.hw, z_sym.shape[1:3], w.K)
 
 
 def dispatch_decode_rans(codec, blobs: List[bytes]):

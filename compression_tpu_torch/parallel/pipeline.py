@@ -1,5 +1,6 @@
 """Host/device coding pipeline (counterpart of
-``compression_tpu/parallel/pipeline.py`` ``Pipeline``).
+``compression_tpu/parallel/pipeline.py`` ``Pipeline`` and
+``staggered_map``).
 
 Double buffering: the main thread dispatches batch i+1's device stage
 (asynchronous CUDA work on the codec's stream, ending in non-blocking
@@ -19,7 +20,7 @@ from typing import Callable, Iterable, Iterator, List, Optional
 
 import torch
 
-__all__ = ["Pipeline", "Work", "stream_context"]
+__all__ = ["Pipeline", "Work", "stream_context", "staggered_map"]
 
 
 class Work:
@@ -67,3 +68,21 @@ class Pipeline:
                     yield inflight.pop(0).result()
             for fut in inflight:
                 yield fut.result()
+
+
+def staggered_map(fn: Callable, items: Iterable, depth: int = 2) -> Iterator:
+    """Runs ``fn`` over ``items`` with up to ``depth`` calls in flight on
+    worker threads, yielding the results in input order.
+
+    The decoder's staggering: a call that mixes device work with blocking
+    host range decoding (ms2020's slice-by-slice decode) lets another
+    call's device work run while it waits on the host."""
+    depth = max(1, int(depth))
+    with cf.ThreadPoolExecutor(max_workers=depth) as pool:
+        inflight: List[cf.Future] = []
+        for item in items:
+            inflight.append(pool.submit(fn, item))
+            while len(inflight) >= depth:
+                yield inflight.pop(0).result()
+        for fut in inflight:
+            yield fut.result()

@@ -319,5 +319,6 @@ def test_port_never_imports_jax_or_the_jax_package():
             hits.append(f"{path.relative_to(ROOT)}:{line}: {m.group(0).strip()}")
     assert len(files) > 20 and not hits, hits
     names = {path.relative_to(ROOT).as_posix() for path in files}
-    for module in ("bls2017", "mbt2018", "codec_base", "device_coding"):
+    for module in ("bls2017", "mbt2018", "b2018", "ms2020", "codec_base", "device_coding"):
         assert f"compression_tpu_torch/models/{module}.py" in names
+    assert "compression_tpu_torch/parallel/charm_pipeline.py" in names

@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the CUDA kernels (K1 fused GDN at
 any width up to 192, K3/K2 rANS encode/decode) against their plain twins, K1
 under autograd, the codecs on the card (bmshj2018 with either coder,
-bls2017 in both archs, mbt2018 with either coder), and training steps,
-against the CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
+bls2017 in both archs, mbt2018 with either coder, b2018 at 192 filters,
+ms2020 at full width with either coder), and training steps, against the
+CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
 without JAX run it alone, without the suite's conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -19,8 +20,8 @@ from compression_tpu_torch.codec import pmf_to_quantized_cdf, rans, rans_ref
 from compression_tpu_torch.entropy_models.continuous_base import CdfTables
 from compression_tpu_torch.layers import fused_gdn, fused_gdn_reference, parameters
 from compression_tpu_torch.layers.gdn_kernel import FusedGDN
-from compression_tpu_torch.models import bls2017, bmshj2018, common, mbt2018
-from compression_tpu_torch.models.device_coding import rans_for
+from compression_tpu_torch.models import b2018, bls2017, bmshj2018, common, mbt2018, ms2020
+from compression_tpu_torch.models.device_coding import num_fields, rans_for
 from compression_tpu_torch.util import PackedTensors
 from compression_tpu_torch.util.image import pad_to_multiple_np
 
@@ -546,3 +547,177 @@ def test_mbt2018_train_step_on_card_matches_cpu(cuda):
     for n in g_cpu:
         torch.testing.assert_close(g_gpu[n], g_cpu[n], rtol=1e-3,
                                    atol=1e-3 * g_cpu[n].abs().max().item(), msg=n)
+
+
+# -- b2018 and ms2020 at full width on the card ----------------------------------
+
+
+def _pair(make, cuda):
+    """The same seeded model on the CPU and on the card."""
+    cpu = make()
+    gpu = make()
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu.to(cuda)
+
+
+@pytest.mark.parametrize("q", [0, 3, (1, 2)])
+def test_b2018_forward_on_card_matches_cpu(cuda, q):
+    """b2018-gdn at 192 filters: the analysis at a scalar quality and one
+    quality per example within 1e-4 (cuDNN and K1 against the CPU); the
+    synthesis of the same rounded latents within 1e-4; the rates of the
+    quantized forward within 1e-3 relative (a latent at a rounding tie may
+    round the other way)."""
+    cpu, gpu = _pair(lambda: b2018.B2018Model(b2018.Config(num_filters=192), seed=2), cuda)
+    x = torch.from_numpy(np.random.RandomState(4).rand(2, 96, 128, 3).astype(np.float32))
+    qt = torch.tensor(q)
+    with torch.no_grad():
+        gains = cpu.gain[qt] if qt.ndim == 0 else cpu.gain[qt][:, None, None, :]
+        y_cpu = cpu.analysis(x) * gains
+        y_gpu = gpu.analysis(x.to(cuda)) * gains.to(cuda)
+        torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
+        y_hat = torch.round(y_cpu)
+        inv = cpu.inv_gain[qt] if qt.ndim == 0 else cpu.inv_gain[qt][:, None, None, :]
+        torch.testing.assert_close(gpu.synthesis((y_hat * inv).to(cuda)).cpu(),
+                                   cpu.synthesis(y_hat * inv), rtol=1e-4, atol=1e-4)
+        before = fused_gdn.launches
+        _, bits_gpu = gpu(x.to(cuda), None, qt.to(cuda), training=False)
+        assert fused_gdn.launches == before + 4
+        _, bits_cpu = cpu(x, None, qt, training=False)
+    torch.testing.assert_close(bits_gpu.cpu(), bits_cpu, rtol=1e-3, atol=0)
+
+
+def test_b2018_codec_and_train_step_on_card(cuda):
+    """b2018-gdn at 192: K1 4 launches over one round trip and over one
+    training step; each quality's blob carries it; re-compression is
+    byte-identical; the reconstruction within one level of the CPU codec's
+    on the same tables."""
+    cpu_model, gpu_model = _pair(
+        lambda: b2018.B2018Model(b2018.Config(num_filters=192), seed=3), cuda)
+    cpu = b2018.Codec(cpu_model, device="cpu")
+    gpu = b2018.Codec(gpu_model, device=cuda, tables=cpu.tables)
+    image = (np.random.RandomState(5).rand(96, 130, 3) * 255).astype(np.uint8)
+    for quality in (1, 4):
+        before = fused_gdn.launches
+        blob = gpu.compress(image, quality=quality)
+        out = gpu.decompress(blob)
+        assert fused_gdn.launches == before + 4
+        assert PackedTensors(blob).unpack_one(2, np.int32)[2] == quality - 1
+        assert out.shape == image.shape and gpu.compress(image, quality=quality) == blob
+        cpu_out = cpu.decompress(cpu.compress(image, quality=quality))
+        assert np.abs(cpu_out.astype(np.int16) - out.astype(np.int16)).max() <= 1
+    tcfg = common.TrainConfig(lr_scales=(("params/gain", 10.0),))
+    optimizer = common.make_optimizer(gpu_model, tcfg)
+    counts = (fused_gdn.launches, rans.rans_encode.launches, rans.rans_decode.launches)
+    loss, _ = common.train_step(gpu_model, optimizer, b2018.make_loss_fn(gpu_model),
+                                torch.rand(4, 128, 128, 3, device=cuda),
+                                torch.Generator(cuda).manual_seed(0), common.lr_schedule(tcfg))
+    torch.cuda.synchronize()
+    assert np.isfinite(loss.item())
+    assert (fused_gdn.launches - counts[0], rans.rans_encode.launches - counts[1],
+            rans.rans_decode.launches - counts[2]) == (4, 0, 0)
+
+
+def test_ms2020_pieces_on_card_match_cpu(cuda):
+    """ms2020 at full width (192/320/192, 10 slices): the latents, the
+    supports and every slice's mean, scale and LRP on the card against the
+    CPU on the same inputs (the CPU's decoded slices as context), within
+    1e-4; the quantized loss within 1e-3 relative."""
+    cpu, gpu = _pair(lambda: ms2020.MS2020Model(ms2020.Config(), seed=4), cuda)
+    x = torch.from_numpy(np.random.RandomState(6).rand(2, 128, 128, 3).astype(np.float32))
+
+    def close(got, want):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+    with torch.no_grad():
+        y, z = cpu.encode_latents(x)
+        for got, want in zip(gpu.encode_latents(x.to(cuda)), (y, z)):
+            close(got, want)
+        sup = cpu.supports_from_zhat(torch.round(z))
+        gsup = [t.to(cuda) for t in sup]
+        for got, want in zip(gpu.supports_from_zhat(torch.round(z).to(cuda)), sup):
+            close(got, want)
+        decoded = []
+        for i in range(10):
+            mu, sigma = cpu.slice_params(i, *sup, decoded)
+            gmu, gsigma = gpu.slice_params(i, *gsup, [d.to(cuda) for d in decoded])
+            close(gmu, mu)
+            close(gsigma, sigma)
+            y_hat = torch.round(y[..., 32 * i : 32 * i + 32] - mu) + mu
+            lrp = cpu.slice_lrp(i, sup[0], decoded + [y_hat])
+            close(gpu.slice_lrp(i, gsup[0], [d.to(cuda) for d in decoded + [y_hat]]), lrp)
+            decoded.append(y_hat + lrp)
+        before = fused_gdn.launches
+        loss_gpu, _ = ms2020.make_loss_fn(gpu, training=False)(x.to(cuda))
+        assert fused_gdn.launches == before + 6
+        loss_cpu, _ = ms2020.make_loss_fn(cpu, training=False)(x)
+    np.testing.assert_allclose(loss_gpu.item(), loss_cpu.item(), rtol=1e-3)
+
+
+def test_ms2020_device_round_trip_equals_host_coder_on_card(cuda):
+    """ms2020 at full width on 3 images of 96x130 (padded to 128x192): the
+    device coder's round trip launches K1 6, K3 20 (2 a slice) and K2 10
+    (1 a slice) and decodes to the host coder's reconstruction; a blob
+    decodes alone as in the batch; re-compression is byte-identical; each
+    slice's words are what the CPU coder (the twin) writes for the card's
+    symbols and rows; a training step launches K1 6 and no rANS kernel."""
+    model = ms2020.MS2020Model(ms2020.Config(), seed=5)
+    codec = ms2020.Codec(model, device=cuda)
+    images = (np.random.RandomState(7).rand(3, 96, 130, 3) * 255).astype(np.uint8)
+    before = (rans.rans_encode.launches, rans.rans_decode.launches, fused_gdn.launches)
+    blobs = codec.compress_batch(images, coder="device")
+    out = codec.decompress_batch(blobs)
+    assert (rans.rans_encode.launches, rans.rans_decode.launches,
+            fused_gdn.launches) == (before[0] + 20, before[1] + 10, before[2] + 6)
+    assert all(num_fields(b) == 10 + 4 for b in blobs)
+    host = codec.compress_batch(images)
+    assert all(num_fields(b) == 10 + 3 for b in host)
+    np.testing.assert_array_equal(codec.decompress_batch(host), out)
+    np.testing.assert_array_equal(codec.decompress(blobs[1]), out[1])
+    assert codec.compress_batch(images, coder="device") == blobs
+    with torch.inference_mode():
+        syms, _, rows, _ = codec._encode_slices(images)
+    _enc, _dec, K, cap = rans_for(codec, syms[0][0].numel())
+    for i in (0, 9):
+        stream, lengths, _ = rans.rans_encode_reference(
+            codec._rans_tables, syms[i].reshape(3, -1).cpu(), rows[i].reshape(3, -1).cpu(),
+            K, cap)
+        for b in range(3):
+            want = stream[b, : int(lengths[b])].numpy().tobytes()
+            assert bytes(PackedTensors(blobs[b]).unpack_one(i, object)[0]) == want
+    tcfg = common.TrainConfig()
+    optimizer = common.make_optimizer(model, tcfg)
+    model.train()
+    counts = (fused_gdn.launches, rans.rans_encode.launches, rans.rans_decode.launches)
+    loss, _ = common.train_step(model, optimizer, ms2020.make_loss_fn(model),
+                                torch.rand(2, 128, 128, 3, device=cuda),
+                                torch.Generator(cuda).manual_seed(0), common.lr_schedule(tcfg))
+    torch.cuda.synchronize()
+    assert np.isfinite(loss.item())
+    assert (fused_gdn.launches - counts[0], rans.rans_encode.launches - counts[1],
+            rans.rans_decode.launches - counts[2]) == (6, 0, 0)
+
+
+def test_rans_kernels_match_twins_on_an_ms2020_slice(cuda):
+    """K3 and K2 against their twins on slice 0 of a full-width ms2020
+    codec's real symbols and rows for 2 images of 768x512 (N = 49,152 a
+    slice, K = 128): identical words, lengths, flags and values."""
+    codec = ms2020.Codec(ms2020.MS2020Model(ms2020.Config(), seed=6), device=cuda)
+    yy, xx = np.mgrid[0:512, 0:768].astype(np.float32)
+    image = np.stack([xx / 3, yy / 2, (np.sin(xx / 17) * 0.5 + 0.5) * 255], -1)
+    images = np.stack([np.clip(image + s * 40, 0, 255).astype(np.uint8) for s in range(2)])
+    with torch.inference_mode():
+        syms, _, rows, _ = codec._encode_slices(images)
+        values, slice_rows = syms[0].reshape(2, -1), rows[0].reshape(2, -1)
+        _enc, _dec, K, cap = rans_for(codec, values.shape[1])
+        assert (values.shape[1], K, cap) == (49_152, 128, 3 * 49_152 + 2 * 128 + 64)
+        tables = codec._rans_tables
+        got = rans.rans_encode(tables, values, slice_rows, K, cap)
+        want = rans.rans_encode_reference(tables, values, slice_rows, K, cap)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert not got[2].any()
+        out, ok = rans.rans_decode(tables, got[0], slice_rows, K, values.shape[1])
+        want_out, want_ok = rans.rans_decode_reference(tables, got[0], slice_rows, K,
+                                                       values.shape[1])
+        assert torch.equal(out, want_out) and torch.equal(ok, want_ok)
+        assert bool(ok.all()) and torch.equal(out, values)
