@@ -1,7 +1,7 @@
 """On-card smoke run of the PyTorch/CUDA port: bmshj2018 at full width, with
 the host coder and with the device (rANS) coder, its training, and the
 other families at full width (bls2017, bmshj2018-factorized, mbt2018-mean,
-b2018, ms2020-cc10).
+b2018, ms2020-cc10, HiFiC).
 
     python3 chip_smoke.py [--batches N] [--reps N]
 
@@ -38,10 +38,12 @@ of a checkout. Phases, each fatal on failure:
    stream within 1.1x the host coder's y string + 4K + 16 bytes;
 6. throughput: compress_iter / decompress_iter with each coder (8 batches
    of 8 by default);
-7. profile: device time by kernel, and the device's idle share, over one
-   compress + decompress and over the pipelined iterators (torch.profiler),
-   with each coder; K3 and K2 inside the device codec next to their
-   standalone times of phase 3;
+7. profile: device time by kind and by kernel, and the device's idle
+   share, over one compress + decompress and over the pipelined iterators
+   (torch.profiler, ``profile_device``: each activity's time not covered
+   by an earlier one, so the kinds add up to busy), with each coder; K3
+   and K2 inside the device codec next to their standalone times of
+   phase 3;
 8. training, bmshj2018 at full width on batches of 8 crops of 256x256
    (crop_dataset's synthetic fallback: the card machine has no images and
    no PIL), all under the fp32 settings of phase 1:
@@ -67,7 +69,7 @@ of a checkout. Phases, each fatal on failure:
    h. steps/s and img/s of train_model over 50 steps after 5 warm-up
       steps, and a profile of 10 steps: device busy time, idle share, and
       device ms by kind (convolutions forward and backward, K1, the GDN
-      backward's ops, Adam, other);
+      backward's ops, Adam, copies, other);
 9. factorized-prior codecs: bls2017 at 128 filters and bmshj2018-factorized
    at 192/192, each trained 100 steps from its seeded init on one fixed
    batch (the loss must fall), then compress and decompress of 8 structured
@@ -110,7 +112,38 @@ of a checkout. Phases, each fatal on failure:
     compress_iter / decompress_iter throughput with each coder; e. the
     encode chain's cost (the front alone, then with the per-image slice
     chain: host enqueue ms, device activities and busy ms); f. a profile
-    of one round trip with each coder.
+    of one round trip with each coder;
+13. HiFiC hific-mi at full width (220 latents, 320 hyperlatents, 9 residual
+    blocks, the fixed 60-960 widths): a. one joint G/D step of 2 crops of
+    256x256 on the card against the CPU from the same seeded weights, with
+    the noise drawn once on the CPU and fed to both, LPIPS on synthetic
+    weights (a seeded NumPy draw in tools/convert_lpips.py's torch layout),
+    with the CPU's float64 step as the reference: in float64 the card's
+    losses (1e-10 relative) and every G and D gradient and u and sigma
+    (1e-8 of the largest entry); in float32 the G and D losses (1e-4
+    relative of the CPU's float32) and D's u and sigma (1e-3 of the
+    largest entry), and the gradients no further from float64 on the card
+    than 3x the CPU's float32 distance, for the worst tensor and the median
+    one (a ReLU flipped by an ulp at 16x16 latents moves a gradient by
+    ~1/512 of its sum; the flips on each device are counted);
+    b. 100 joint steps of ``hific.train`` from the seed at batch 8
+    of 256x256 (LPIPS's random-feature fallback: no weights file), every
+    metric finite, the mean MSE of the first 10 steps above the last 10's,
+    bpp, lambda and hinge_on at steps 1, 10 and 100, ms a step and img/s,
+    the launches of exactly one step (K1 0, K3 0, K2 0) and a profile of 3
+    steps by kind; c. the codec of the trained model over the 8 structured
+    images with each coder
+    (launches K1 0 host; K1 0, K3 2, K2 1 on chip device; 4- and 5-field
+    blobs with K=128, the device reconstruction equal to the host coder's,
+    byte-identical re-compression, batch-1 decode equal to the batch-8
+    decode, each y stream within phase 5's gate, a 128x192 input within one
+    level of the CPU), and ``coded_bpp`` of the 8 images beside the host
+    coder's bpp (printed, not held: the model is barely trained); d. K3 and
+    K2 against their twins on its symbols and rows (N = 337,920, T =
+    2,640), with times, bounds and serial floors; e. compress_iter /
+    decompress_iter throughput with each coder; f. a profile of one round
+    trip with each coder: device ms by kind (convolutions, ChannelNorm's
+    forward ops, K3, K2, copies, other) and the idle share.
 
 Then one JSON line with every kernel's numbers (and its launches on every
 path), the training numbers and the families' numbers, the card line, and
@@ -644,8 +677,7 @@ def check_small_against_cpu(module, model, hw=(128, 192), **compress_kw) -> int:
     gpu = module.Codec(model, device=DEVICE, tables=tables)
     x = torch.from_numpy(images).float() / 255.0
     with torch.inference_mode():
-        y_cpu = cpu.model.analysis(x)
-        y_gpu = gpu.model.analysis(x.to(DEVICE))
+        y_cpu, y_gpu = cpu.model.analysis(x), gpu.model.analysis(x.to(DEVICE))
     torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
 
     def round_trip(codec):
@@ -660,8 +692,8 @@ def check_small_against_cpu(module, model, hw=(128, 192), **compress_kw) -> int:
     launches = fused_gdn.launches
     out_cpu = round_trip(cpu)
     diff = np.abs(out_gpu.astype(np.int16) - out_cpu.astype(np.int16))
-    log(f"  {hw[0]}x{hw[1]} input vs CPU path ({type(model).__name__}, "
-        f"{model.config.num_filters} filters): max |diff| {diff.max()} levels, "
+    log(f"  {hw[0]}x{hw[1]} input vs CPU path ({type(model).__name__}): max |diff| "
+        f"{diff.max()} levels, "
         f"{100 * np.mean(diff == 0):.3f}% equal; K1 launches {launches}")
     if diff.max() > 1 or np.mean(diff == 0) < 0.99:
         raise AssertionError("card and CPU reconstructions disagree")
@@ -674,9 +706,9 @@ def num_streams(codec) -> int:
 
 
 def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
-                cpu_check: bool = True) -> tuple:
+                cpu_check: bool = True, gdn: int = 6) -> tuple:
     """A hyperprior codec's host-coded path: launches over exactly
-    compress_batch + decompress_batch (6 for K1), byte-identical
+    compress_batch + decompress_batch (``gdn`` for K1), byte-identical
     re-compression, batch-1 decode equal to the batch-8 decode, PSNR and
     bpp (PSNR held to ``min_psnr`` where the weights are trained ones), and
     with ``cpu_check`` a small input against the CPU path of ``module``.
@@ -698,8 +730,8 @@ def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
     launches = {"gdn": fused_gdn.launches}
     log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress {1e3 * (t1 - t0):.1f} ms, "
         f"decompress {1e3 * (t2 - t1):.1f} ms; K1 launches {launches['gdn']}")
-    if launches["gdn"] != 6:
-        raise AssertionError(f"expected 6 K1 launches, saw {launches['gdn']}")
+    if launches["gdn"] != gdn:
+        raise AssertionError(f"expected {gdn} K1 launches, saw {launches['gdn']}")
     if out.shape != images.shape or out.dtype != np.uint8:
         raise AssertionError(f"bad output {out.shape} {out.dtype}")
     fields = num_streams(codec) + 3
@@ -724,9 +756,9 @@ def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
 
 
 def phase_codec_device(codec, images, host_blobs, host_out,
-                       label: str = "codec (device coder)") -> dict:
+                       label: str = "codec (device coder)", gdn: int = 6) -> dict:
     """A device-coded path: launches over exactly compress_batch +
-    decompress_batch (K3 2 and K2 1 a y stream, K1 6), and its outputs
+    decompress_batch (K3 2 and K2 1 a y stream, K1 ``gdn``), and its outputs
     against the host coder's; each y stream within 1.1x the host coder's
     string for it plus the lane states."""
     from compression_tpu_torch.codec import rans
@@ -747,9 +779,9 @@ def phase_codec_device(codec, images, host_blobs, host_out,
     log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress "
         f"{1e3 * (t1 - t0):.1f} ms, decompress {1e3 * (t2 - t1):.1f} ms; launches {launches}")
     S = num_streams(codec)
-    if launches != {"rans_encode": 2 * S, "rans_decode": S, "gdn": 6}:
-        raise AssertionError(f"expected K3 {2 * S} (fields, lanes a stream), K2 {S}, K1 6 "
-                             f"launches, saw {launches}")
+    if launches != {"rans_encode": 2 * S, "rans_decode": S, "gdn": gdn}:
+        raise AssertionError(f"expected K3 {2 * S} (fields, lanes a stream), K2 {S}, "
+                             f"K1 {gdn} launches, saw {launches}")
     variants = dict(rans.rans_decode.variant_launches)
     if variants != {"on_chip": S, "global": 0}:
         raise AssertionError(f"expected K2's on-chip variant {S} times, saw {variants}")
@@ -780,45 +812,113 @@ def phase_codec_device(codec, images, host_blobs, host_out,
     return launches
 
 
-def phase_profile(label: str, run, top: int = 0) -> dict:
-    """Device time by kernel over ``run()`` (torch.profiler), grouped, and
-    the device's idle share of the wall time (busy = the sum of the kernel
-    and copy durations; one stream, so they barely overlap). Returns
-    {kernel name: (ms, calls)}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def kind_of(kernel: str, ops: list) -> str:
+    """The kind of a device activity, from its name (K1, K3, K2, copies) or
+    from the CPU ops it was launched under, innermost first (ChannelNorm's
+    forward, traced by a ``record_function``; Adam; K1's backward;
+    convolutions backward and forward)."""
+    low, chain = kernel.lower(), " ".join(ops)
+    for kind, parts in (("K1", ("gdn_kernel",)), ("K3", ("rans_fields", "rans_encode")),
+                        ("K2", ("rans_decode",)), ("copies", ("memcpy", "memset"))):
+        if any(part in low for part in parts):
+            return kind
+    for kind, parts in (("channelnorm", ("hific.ChannelNorm",)), ("adam", ("Optimizer.step",)),
+                        ("gdn_backward", ("FusedGDNBackward",)),
+                        ("conv_backward", ("convolution_backward",)),
+                        ("conv_forward", ("aten::convolution", "aten::conv2d"))):
+        if any(part in chain for part in parts):
+            return kind
+    return "other"
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    per_kernel: dict = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            ms, calls = per_kernel.get(evt.name, (0.0, 0))
-            per_kernel[evt.name] = (ms + evt.time_range.elapsed_us() / 1e3, calls + 1)
-    if not per_kernel:
+
+def profile_device(label: str, run, steps: int = 1, top: int = 0) -> dict:
+    """Device time over ``run()`` (``steps`` steps of it) with torch.profiler:
+    device activities are the kernels, copies and fills (the GPU ranges of
+    ``record_function`` annotations are not activities); busy is the union
+    of their intervals, idle the rest of the wall time. Each activity
+    counts only its time not already covered by an earlier one, so the kinds
+    (``kind_of``, through the CPU op that launched it: its linked
+    correlation id) add up to busy; the summed durations and the overlap
+    they hide are printed beside it, with the streams and the kernels that
+    overlap most. The forward convolutions' FLOPs are torch.profiler's
+    count of the ``aten::conv2d`` ops (from their shapes), over their own
+    device time. ChannelNorm's forward is traced by a ``record_function``
+    for the run. ``top`` kernels are listed by their own time. Returns
+    wall_ms, busy_ms, activity_ms, idle, device_activities, by_kind_ms and
+    conv_forward_tflop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from compression_tpu_torch.models.hific import archs
+
+    forward = archs.ChannelNorm.forward
+
+    def traced(self, x):
+        with record_function("hific.ChannelNorm"):
+            return forward(self, x)
+
+    archs.ChannelNorm.forward = traced
+    try:
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     with_flops=True) as prof:
+            t0 = time.perf_counter()
+            run()
+            sync()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        archs.ChannelNorm.forward = forward
+    events = prof.events()
+    cpu_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    ops = {e.id: e for e in events if e.device_type == DeviceType.CPU and e.kernels}
+    device = sorted((k.start_ns(), k.start_ns() + k.duration_ns(), k.name(),
+                     k.linked_correlation_id(), k.device_resource_id())
+                    for k in prof.profiler.kineto_results.events()
+                    if k.device_type() == DeviceType.CUDA and k.name() not in cpu_names)
+    if not device:
         log(f"profile ({label}): the profiler saw no device activity; not measured")
-        return per_kernel
-    busy = sum(ms for ms, _ in per_kernel.values())
-    groups = {"K1 gdn": 0.0, "K3/K2 rans": 0.0, "convolution": 0.0,
-              "memcpy": 0.0, "other": 0.0}
-    for name, (ms, _) in per_kernel.items():
-        low = name.lower()
-        key = ("K1 gdn" if "gdn_kernel" in low else
-               "K3/K2 rans" if "rans_" in low else
-               "memcpy" if "memcpy" in low else
-               "convolution" if any(s in low for s in ("conv", "cudnn", "xmma", "gemm", "fprop"))
-               else "other")
-        groups[key] += ms
-    log(f"profile ({label}): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
-        f"idle {100 * (1 - busy / wall_ms):.1f}%; "
-        + ", ".join(f"{k} {v:.1f} ms" for k, v in groups.items()))
+        return {}
+    kinds = dict.fromkeys(("conv_forward", "conv_backward", "channelnorm", "K1",
+                           "gdn_backward", "adam", "K3", "K2", "copies", "other"), 0.0)
+    per_kernel, overlap, end, end_stream, same_stream = {}, {}, float("-inf"), None, 0.0
+    for start, stop, name, linked, stream in device:
+        own = max(0, stop - max(start, end)) / 1e6
+        if start < end and stream == end_stream:
+            same_stream += (stop - start) / 1e6 - own
+        if stop > end:
+            end, end_stream = stop, stream
+        chain, parent = [], ops.get(linked)
+        while parent is not None:
+            chain.append(parent.name)
+            parent = parent.cpu_parent
+        kinds[kind_of(name, chain)] += own
+        ms, calls = per_kernel.get(name, (0.0, 0))
+        per_kernel[name] = (ms + own, calls + 1)
+        overlap[name] = overlap.get(name, 0.0) + (stop - start) / 1e6 - own
+    busy = sum(kinds.values())
+    total = sum(stop - start for start, stop, *_ in device) / 1e6
+    tflop = sum(e.flops for e in events if e.name == "aten::conv2d" and e.flops) / 1e12
+    log(f"profile ({label}): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle "
+        f"{100 * (1 - busy / wall_ms):.1f}%, {len(device)} device activities (their "
+        f"durations sum to {total:.1f} ms); by kind: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds.items() if v))
+    if steps > 1:
+        log(f"  a step: wall {wall_ms / steps:.2f} ms, device busy {busy / steps:.2f} ms, "
+            f"{len(device) / steps:.0f} device activities; " + ", ".join(
+                f"{k} {v / steps:.2f} ms ({100 * v / busy:.1f}%)" for k, v in kinds.items() if v))
+    if kinds["conv_forward"]:
+        log(f"  forward convolutions: {tflop:.4f} TFLOP, "
+            f"{tflop / kinds['conv_forward'] * 1e3:.2f} TFLOP/s over their own device time")
+    if total - busy > 0.01 * busy:
+        log(f"  overlapped time {total - busy:.1f} ms ({same_stream:.1f} ms of it on the "
+            f"stream of the activity it overlaps; {len({d[4] for d in device})} streams), "
+            "in the activities that start before the one ahead of them ends: " + "; ".join(
+                f"{ms:.1f} ms {name[:80]}"
+                for name, ms in sorted(overlap.items(), key=lambda kv: -kv[1])[:3]))
     for name, (ms, calls) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {ms:8.2f} ms {calls:5d}x  {name[:110]}")
-    return per_kernel
+    return dict(wall_ms=wall_ms, busy_ms=busy, activity_ms=total, idle=1 - busy / wall_ms,
+                device_activities=len(device), by_kind_ms=kinds, conv_forward_tflop=tflop)
 
 
 def phase_throughput(codec, images, batches: int, card: str, coder: str,
@@ -1110,72 +1210,6 @@ def train_msssim(steps: int = 3) -> None:
         for i, m in enumerate(seen)))
 
 
-def kind_of(kernel: str, ops: list) -> str:
-    """The kind of a device kernel, from its name and the names of the CPU
-    ops it was launched under (innermost first)."""
-    chain = " ".join(ops)
-    if "gdn" in kernel.lower():
-        return "K1"
-    if "Optimizer.step" in chain:
-        return "adam"
-    if "FusedGDNBackward" in chain:
-        return "gdn_backward"
-    if "ConvolutionBackward" in chain or "convolution_backward" in chain:
-        return "conv_backward"
-    if "aten::convolution" in chain or "aten::conv2d" in chain:
-        return "conv_forward"
-    return "other"
-
-
-def profile_training(run, steps: int, label: str) -> dict:
-    """Device busy time, idle share and device ms by kind over ``run()``
-    (``steps`` training steps), in all and a step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        sync()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = prof.events()
-    busy = sum(e.time_range.elapsed_us() for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3
-    kinds = dict.fromkeys(("conv_forward", "conv_backward", "K1", "gdn_backward", "adam",
-                           "other"), 0.0)
-    for evt in events:
-        if evt.device_type != DeviceType.CPU or not evt.kernels:
-            continue
-        ops, parent = [], evt
-        while parent is not None:
-            ops.append(parent.name)
-            parent = parent.cpu_parent
-        for kernel in evt.kernels:
-            kinds[kind_of(kernel.name, ops)] += kernel.duration / 1e3
-    if busy == 0:
-        log(f"  8h profile ({label}): the profiler saw no device activity; not measured")
-        return {}
-    attributed = sum(kinds.values())
-    launches = sum(1 for e in events if e.device_type == DeviceType.CUDA)
-    log(f"  8h profile ({label}): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle "
-        f"{100 * (1 - busy / wall_ms):.1f}%, {launches} device activities; by kind "
-        f"({attributed:.1f} ms attributed to CPU ops): "
-        + ", ".join(f"{k} {v:.1f} ms" for k, v in kinds.items()))
-    log(f"  8h a step: wall {wall_ms / steps:.2f} ms, device busy {busy / steps:.2f} ms, "
-        f"{launches / steps:.0f} device activities; "
-        + ", ".join(f"{k} {v / steps:.2f} ms ({100 * v / busy:.1f}%)" for k, v in kinds.items()))
-    per_kernel: dict = {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA:
-            ms, calls = per_kernel.get(e.name, (0.0, 0))
-            per_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
-    for name, (ms, calls) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"  {ms:8.2f} ms {calls:5d}x  {name[:110]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy, idle=1 - busy / wall_ms,
-                by_kind_ms=kinds, device_activities=launches)
-
-
 def time_training(card: str) -> dict:
     """8h: train_model's rate over 50 steps after 5 warm-up steps, then a
     profile of 10 steps of its loop body."""
@@ -1210,7 +1244,8 @@ def time_training(card: str) -> dict:
             common.train_step(model, optimizer, loss_fn, x, gen, schedule)
 
     steps(2)  # Adam's state exists before the profiled window
-    prof = profile_training(lambda: steps(10), 10, f"10 training steps, {card}")
+    prof = profile_device(f"8h 10 training steps, {card}", lambda: steps(10), steps=10,
+                          top=12)
     # Host time a step, without the profiler: making a batch, and enqueuing
     # a step on a batch already on the card (the device runs behind it).
     t0 = time.perf_counter()
@@ -1476,9 +1511,9 @@ def phase_mbt2018(card: str, reps: int, batches: int) -> dict:
                                      label="10e mbt2018 throughput")
              for coder in ("host", "device")}
     for coder in ("host", "device"):
-        phase_profile(f"10f mbt2018, {coder} coder, compress_batch + decompress_batch of {BATCH}",
-                      lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)),
-                      top=10)
+        profile_device(
+            f"10f mbt2018, {coder} coder, compress_batch + decompress_batch of {BATCH}",
+            lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)), top=10)
     return dict(train=train, host_launches=host_launches, launches=launches,
                 k1_max_abs_err=k1_err, rans=rans_k, throughput=rates)
 
@@ -1582,10 +1617,8 @@ def time_slice_chain(codec, images) -> dict:
     hyper-analysis, z symbols) alone and the whole chain with the per-image
     slice chain (the supports, then each slice's mean, scale and LRP
     transforms, image by image): the host's enqueue ms, the ms until the
-    device is done, and the device activities the profiler counts."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    device is done, and the device activities and busy ms of
+    ``profile_device``."""
     from compression_tpu_torch.util.image import pad_to_multiple_np
 
     x = pad_to_multiple_np(images, codec.cfg.downscale)[0]
@@ -1601,13 +1634,9 @@ def time_slice_chain(codec, images) -> dict:
             t1 = time.perf_counter()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                run()
-                torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            prof = profile_device(f"12e ms2020 encode, {name}", run)
         out[name] = dict(enqueue_ms=1e3 * (t1 - t0), done_ms=1e3 * (t2 - t0),
-                         device_activities=len(kernels),
-                         busy_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+                         device_activities=prof["device_activities"], busy_ms=prof["busy_ms"])
     per_image = {k: (out["chain"][k] - out["front"][k]) / BATCH
                  for k in ("enqueue_ms", "done_ms", "device_activities", "busy_ms")}
     log(f"  12e encode chain of {BATCH}x{HEIGHT}x{WIDTH}: front {out['front']['enqueue_ms']:.2f} ms "
@@ -1657,11 +1686,319 @@ def phase_ms2020(card: str, reps: int, batches: int) -> dict:
              for coder in ("host", "device")}
     chain = time_slice_chain(codec, images)
     for coder in ("host", "device"):
-        phase_profile(f"12f ms2020, {coder} coder, compress_batch + decompress_batch of {BATCH}",
-                      lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)),
-                      top=10)
+        profile_device(
+            f"12f ms2020, {coder} coder, compress_batch + decompress_batch of {BATCH}",
+            lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)), top=10)
     return dict(train=train, host_launches=host_launches, launches=launches,
                 k1_max_abs_err=k1_err, rans=rans_k, throughput=rates, chain=chain)
+
+
+# -- phase 13: HiFiC at full width -----------------------------------------------
+
+HIFIC_STEPS = 100  # phase 13b: joint steps of hific.train from the seed
+
+
+def hific_config():
+    """Phase 13's model: hific-mi (registry.py:252): 220 latents, 320
+    hyperlatents, 9 residual blocks."""
+    from compression_tpu_torch.models import hific
+
+    return hific.get_config("hific-mi")
+
+
+def synthetic_lpips(seed: int = 0):
+    """LPIPS on synthetic weights: a seeded NumPy draw in the torch layout
+    that tools/convert_lpips.py reads (torchvision VGG16 ``features.N``, the
+    heads ``lin{i}.model.1``), He-scaled so that the features stay of order
+    one through the 13 convolutions, as a trained VGG16's do; then mapped
+    onto the port's names as that tool maps them (``features.N`` of the
+    13 convolutions in order -> ``vgg.conv{b}_{c}``, ``lin{i}.model.1``
+    -> ``lin{i}``)."""
+    from compression_tpu_torch.models.hific import lpips
+
+    torch_conv_idx = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+    rng = np.random.RandomState(seed)
+    vgg, cin = {}, 3
+    for w, ti in zip([w for block in lpips._BLOCKS for w in block], torch_conv_idx):
+        vgg[f"features.{ti}.weight"] = (rng.randn(w, cin, 3, 3)
+                                        * np.sqrt(2.0 / (9 * cin))).astype(np.float32)
+        vgg[f"features.{ti}.bias"] = (rng.randn(w) * 0.01).astype(np.float32)
+        cin = w
+    lins = {f"lin{i}.model.1.weight": (np.abs(rng.randn(1, block[-1], 1, 1)) / block[-1])
+            .astype(np.float32) for i, block in enumerate(lpips._BLOCKS)}
+    names = [f"vgg.conv{b}_{c}" for b, block in enumerate(lpips._BLOCKS)
+             for c in range(len(block))]
+    state = {f"{name}.{leaf}": torch.from_numpy(vgg[f"features.{ti}.{leaf}"])
+             for name, ti in zip(names, torch_conv_idx) for leaf in ("weight", "bias")}
+    state.update({f"lin{i}": torch.from_numpy(lins[f"lin{i}.model.1.weight"].reshape(-1))
+                  for i in range(len(lpips._BLOCKS))})
+    model = lpips.LPIPS()
+    model.load_state_dict(state)
+    return model.requires_grad_(False)
+
+
+@contextlib.contextmanager
+def pinned_noise(noise):
+    """The entropy models' training noise taken from ``noise`` (CPU tensors
+    in the order the model draws them: z's, y's, the interior's), each moved
+    to its draw's device and dtype."""
+    from compression_tpu_torch.entropy_models import continuous_batched, continuous_indexed
+
+    queue = list(noise)
+
+    def draw(t, generator):
+        n = queue.pop(0)
+        if tuple(n.shape) != tuple(t.shape):
+            raise AssertionError(f"noise of shape {tuple(n.shape)} for {tuple(t.shape)}")
+        return n.to(t.device, t.dtype)
+
+    saved = continuous_batched.uniform_noise, continuous_indexed.uniform_noise
+    continuous_batched.uniform_noise = continuous_indexed.uniform_noise = draw
+    try:
+        yield
+    finally:
+        continuous_batched.uniform_noise, continuous_indexed.uniform_noise = saved
+    if queue:
+        raise AssertionError(f"{len(queue)} noise draws unused")
+
+
+# The ChannelNorms whose output goes through a ReLU.
+RELU_NORMS = re.compile(r"(encoder\.norm\d+|generator\.res\d+\.norm0|generator\.upnorm\d+)")
+
+
+def hific_step(cfg, lpips, x, noise, device, dtype) -> tuple:
+    """One joint step (past any warm-up) of a seeded G and D in ``dtype`` on
+    ``device`` with pinned noise: the metrics; the G and D gradients and
+    D's spectral-norm buffers after the step; and the signs (> 0) of the
+    ReLU inputs after each ChannelNorm of G's forward; all on the CPU."""
+    import copy
+
+    from compression_tpu_torch.models import hific
+
+    model = hific.HificModel(cfg, seed=0).to(device, dtype)
+    disc = hific.Discriminator(cfg.num_latents, seed=1).to(device, dtype)
+    step, _, _ = hific.make_train_steps(model, disc, copy.deepcopy(lpips).to(device, dtype),
+                                        cfg)
+    signs = {}
+
+    def record(name):
+        def hook(module, args, out):
+            signs.setdefault(name, (out > 0).cpu())
+        return hook
+
+    hooks = [m.register_forward_hook(record(name))
+             for name, m in model.named_modules() if RELU_NORMS.fullmatch(name)]
+    with pinned_noise(noise):
+        metrics = step(x.to(device, dtype), None)
+    for h in hooks:
+        h.remove()
+    return ({k: v.item() for k, v in metrics.items()},
+            {**{f"G {n}": q.grad.cpu() for n, q in model.named_parameters()},
+             **{f"D {n}": q.grad.cpu() for n, q in disc.named_parameters()},
+             **{f"D {n}": b.cpu() for n, b in disc.named_buffers()}},
+            signs)
+
+
+def check_hific_step_against_cpu(cfg) -> dict:
+    """13a: one joint step of 2 crops of TRAIN_PATCH from the same seeded G
+    and D and the same noise: on the CPU in float64 (the reference), on the
+    card in float64 and float32, and on the CPU in float32.
+
+    float64, card against CPU (the same function on both devices): the
+    losses within 1e-10 relative, every G and D gradient and spectral-norm
+    buffer within 1e-8 of its largest entry.
+    float32, as the card trains: the losses within 1e-4 relative of the
+    CPU's and D's spectral-norm state within 1e-3 of its largest entry; the
+    gradients, each measured against the float64 reference, no further from
+    it on the card than 3x the CPU's distance, for the worst tensor and for
+    the median one. The count of ReLU inputs whose sign differs from the
+    float64 run is printed for each device: one flipped element at 16 x 16
+    latents moves a residual block's conv0 gradient by ~1/512 of its sum,
+    which is why the card is not held to the CPU float32 run itself."""
+    x = torch.from_numpy(next(train_batches(2)))
+    p, ring = TRAIN_PATCH, cfg.hinge_boundary_ring
+    gen = torch.Generator().manual_seed(4)
+    noise = [torch.rand(shape, generator=gen) - 0.5 for shape in (
+        (2, p // 64, p // 64, cfg.num_hyperlatents), (2, p // 16, p // 16, cfg.num_latents),
+        (2, p // 16 - 2 * ring, p // 16 - 2 * ring, cfg.num_latents))]
+    lpips = synthetic_lpips()
+    runs, seconds = {}, {}
+    for device, dtype in (("cpu", torch.float64), (DEVICE, torch.float64),
+                          (DEVICE, torch.float32), ("cpu", torch.float32)):
+        t0 = time.perf_counter()
+        runs[device, dtype] = hific_step(cfg, lpips, x, noise, device, dtype)
+        seconds[device, dtype] = time.perf_counter() - t0
+    m_ref, t_ref, s_ref = runs["cpu", torch.float64]
+
+    def loss_errs(m, want):
+        return {k: abs(m[k] - want[k]) / abs(want[k]) for k in ("g_loss", "d_loss")}
+
+    def is_state(n):
+        return n.endswith((".u", ".sigma"))
+
+    def flips(signs):
+        return sum(int((signs[n] != s_ref[n]).sum()) for n in s_ref)
+
+    # float64: the card computes the CPU's function.
+    m64, t64, _ = runs[DEVICE, torch.float64]
+    errs64 = {n: rel_err(t64[n], want) for n, want in t_ref.items()}
+    losses64 = loss_errs(m64, m_ref)
+    worst64 = max(errs64, key=errs64.get)
+    log(f"  13a float64, one joint step of 2 crops of {p}x{p}, card "
+        f"({seconds[DEVICE, torch.float64]:.1f} s) against CPU "
+        f"({seconds['cpu', torch.float64]:.1f} s): g_loss {m64['g_loss']:.6f} / "
+        f"{m_ref['g_loss']:.6f}, d_loss {m64['d_loss']:.6f} / {m_ref['d_loss']:.6f}; "
+        + ", ".join(f"{k} rel err {v:.2e}" for k, v in losses64.items())
+        + f"; {len(errs64)} gradients and buffers: worst {errs64[worst64]:.2e} of its "
+        f"largest entry ({worst64})")
+    bad = {n: e for n, e in errs64.items() if e > 1e-8}
+    if bad or max(losses64.values()) > 1e-10:
+        raise AssertionError(f"13a float64: card off the CPU: losses {losses64}, tensors {bad}")
+
+    # float32: the card's training precision, both devices against float64.
+    (m_gpu, t_gpu, s_gpu), (m_cpu, t_cpu, s_cpu) = (runs[DEVICE, torch.float32],
+                                                      runs["cpu", torch.float32])
+    grads = [n for n in t_ref if not is_state(n)]
+    card = {n: rel_err(t_gpu[n], t_ref[n]) for n in grads}
+    cpu = {n: rel_err(t_cpu[n], t_ref[n]) for n in grads}
+    state = {n: rel_err(t_gpu[n], t_cpu[n]) for n in t_ref if is_state(n)}
+    losses = loss_errs(m_gpu, m_cpu)
+    worst = {k: max(d, key=d.get) for k, d in (("card", card), ("cpu", cpu))}
+    median = {k: float(np.median(list(d.values()))) for k, d in (("card", card), ("cpu", cpu))}
+    over = [n for n in grads if card[n] > 3 * cpu[n]]
+    n_signs = sum(v.numel() for v in s_ref.values())
+    log(f"  13a float32, card ({seconds[DEVICE, torch.float32]:.1f} s) and CPU "
+        f"({seconds['cpu', torch.float32]:.1f} s): g_loss {m_gpu['g_loss']:.6f} / "
+        f"{m_cpu['g_loss']:.6f}, d_loss {m_gpu['d_loss']:.6f} / {m_cpu['d_loss']:.6f} "
+        f"(bpp {m_gpu['bpp']:.5f}, mse {m_gpu['mse']:.4f}, lpips {m_gpu['lpips']:.6f}); "
+        + ", ".join(f"{k} rel err {v:.2e}" for k, v in losses.items())
+        + f"; {len(grads)} G and D gradients against float64: card worst "
+        f"{card[worst['card']]:.2e} ({worst['card']}), median {median['card']:.2e}; CPU worst "
+        f"{cpu[worst['cpu']]:.2e} ({worst['cpu']}), median {median['cpu']:.2e}; "
+        f"{len(over)} tensors with the card over 3x the CPU; card against CPU worst "
+        f"{max(rel_err(t_gpu[n], t_cpu[n]) for n in grads):.2e}; ReLU inputs whose sign "
+        f"differs from float64's: card {flips(s_gpu)}, CPU {flips(s_cpu)} of {n_signs}; "
+        f"spectral-norm state worst {max(state.values()):.2e}")
+    bad = {n: e for n, e in state.items() if e > TRAIN_CPU_TOL}
+    if (bad or max(losses.values()) > 1e-4 or card[worst["card"]] > 3 * cpu[worst["cpu"]]
+            or median["card"] > 3 * median["cpu"]):
+        raise AssertionError(f"13a float32: card's gradients further from float64 than 3x "
+                             f"the CPU's, or losses {losses} or state {bad} off the CPU")
+    return dict(float64_max_rel_err=errs64[worst64], float64_loss_rel_err=losses64,
+                card_max_rel_err=card[worst["card"]], card_worst=worst["card"],
+                card_median_rel_err=median["card"], cpu_max_rel_err=cpu[worst["cpu"]],
+                cpu_worst=worst["cpu"], cpu_median_rel_err=median["cpu"],
+                tensors_over_3x=over, loss_rel_err=losses, state_rel_err=max(state.values()),
+                sign_flips={"card": flips(s_gpu), "cpu": flips(s_cpu), "of": n_signs})
+
+
+def count_hific_step_launches(cfg) -> dict:
+    """13b: the training path's run: one joint step of a batch of
+    TRAIN_BATCH crops, the counts set to 0 just before and read just after;
+    then a profile of 3 steps by kind."""
+    from compression_tpu_torch.codec import rans
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.models import hific
+
+    model = hific.HificModel(cfg, seed=1).to(DEVICE)
+    disc = hific.Discriminator(cfg.num_latents, seed=2).to(DEVICE)
+    step, _, _ = hific.make_train_steps(model, disc, synthetic_lpips().to(DEVICE), cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.from_numpy(next(train_batches(TRAIN_BATCH))).to(DEVICE)
+    step(x, gen)  # warm-up
+    sync()
+    fused_gdn.launches = rans.rans_encode.launches = rans.rans_decode.launches = 0
+    metrics = step(x, gen)
+    sync()
+    launches = {"gdn": fused_gdn.launches, "rans_encode": rans.rans_encode.launches,
+                "rans_decode": rans.rans_decode.launches}
+    log(f"  13b one joint step of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}: launches "
+        f"{launches} (g_loss {metrics['g_loss'].item():.4f})")
+    if launches != {"gdn": 0, "rans_encode": 0, "rans_decode": 0}:
+        raise AssertionError(f"13b: expected K1 0, K3 0, K2 0 launches, saw {launches}")
+    prof = profile_device(f"13b 3 joint steps of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}",
+                          lambda: [step(x, gen) for _ in range(3)], steps=3, top=8)
+    return launches, prof
+
+
+def train_hific(cfg, card: str):
+    """13b: HIFIC_STEPS joint steps of hific.train from the seed on fresh
+    synthetic crops: every metric finite, the mean MSE of the last 10 steps
+    below the first 10's; ms a step and img/s over steps 21 on (the hook
+    reads every metric: one sync a step). Returns (model, numbers)."""
+    from compression_tpu_torch.models import common, hific
+
+    seen, marks = {}, {}
+
+    def hook(step, m):
+        seen[step] = m
+        marks[step] = time.perf_counter()
+
+    tcfg = common.TrainConfig(batch_size=TRAIN_BATCH, patch_size=TRAIN_PATCH,
+                              steps=HIFIC_STEPS, log_every=1, seed=0)
+    with contextlib.redirect_stdout(io.StringIO()):  # its line a step
+        model, _ = hific.train(cfg, tcfg, hooks=hook, device=DEVICE)
+    steps = sorted(seen)
+    mse = np.array([seen[k]["mse"] for k in steps])
+    first, last = float(mse[:10].mean()), float(mse[-10:].mean())
+    step_ms = 1e3 * (marks[HIFIC_STEPS] - marks[20]) / (HIFIC_STEPS - 20)
+    numbers = dict(mse_first=first, mse_last=last, step_ms=step_ms,
+                   steps_per_s=1e3 / step_ms, img_per_s=TRAIN_BATCH * 1e3 / step_ms,
+                   at={k: {n: seen[k][n] for n in ("bpp", "lam", "hinge_on", "mse", "lpips",
+                                                  "g_loss", "d_loss")}
+                       for k in (1, 10, HIFIC_STEPS)})
+    log(f"  13b hific.train, {HIFIC_STEPS} joint steps from the seed on fresh {TRAIN_BATCH}x"
+        f"{TRAIN_PATCH}x{TRAIN_PATCH} synthetic crops ({card}): mse mean of the first 10 "
+        f"{first:.3f}, of the last 10 {last:.3f}; " + "; ".join(
+            f"step {k}: bpp {v['bpp']:.4f} lam {v['lam']:.4f} hinge_on {v['hinge_on']:.0f} "
+            f"lpips {v['lpips']:.5f} g_loss {v['g_loss']:.4f} d_loss {v['d_loss']:.4f}"
+            for k, v in numbers["at"].items())
+        + f"; {step_ms:.2f} ms a step, {numbers['img_per_s']:.2f} img/s over steps "
+        f"21-{HIFIC_STEPS}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    finite = all(np.isfinite(list(seen[k].values())).all() for k in steps)
+    if steps != list(range(1, HIFIC_STEPS + 1)) or not finite or not last < first:
+        raise AssertionError("13b: missing or non-finite metrics, or the MSE did not fall")
+    return model, numbers
+
+
+def phase_hific(card: str, reps: int, batches: int) -> dict:
+    """Phase 13: HiFiC hific-mi at full width: one joint step against the
+    CPU, training from the seed and a step's launches, the codec of the
+    trained model with both coders, K3 and K2 on its symbols and rows,
+    throughput and a profile by kind."""
+    from compression_tpu_torch.models import hific
+    from compression_tpu_torch.util.image import pad_to_multiple_np
+
+    log(f"HiFiC hific-mi at full width (phase 13; {card}):")
+    cfg = hific_config()
+    step_check = check_hific_step_against_cpu(cfg)
+    train_launches, train_profile = count_hific_step_launches(cfg)
+    model, train = train_hific(cfg, card)
+    train.update(cpu=step_check, launches=train_launches, profile=train_profile)
+
+    codec = hific.Codec(model, device=DEVICE)
+    images = structured_images()
+    host_blobs, host_out, host_launches = phase_codec(
+        codec, images, hific, label="13c hific codec", min_psnr=None, gdn=0)
+    launches = phase_codec_device(codec, images, host_blobs, host_out,
+                                  label="13c hific codec (device coder)", gdn=0)
+    x = torch.from_numpy(pad_to_multiple_np(images, 64)[0]).to(DEVICE).float() / 255.0
+    with torch.no_grad():
+        coded = float(codec.model.coded_bpp(x))
+    host_bpp = 8.0 * sum(len(b) for b in host_blobs) / (BATCH * HEIGHT * WIDTH)
+    log(f"  13c coded_bpp of the {BATCH} images {coded:.4f} against the host coder's "
+        f"{host_bpp:.4f} bpp (blob framing included; not held: the model is barely trained)")
+    log("13d K3/K2 on HiFiC's symbols and rows:")
+    rans_k = phase_rans_kernels(codec, images, reps, main_path=False)
+    rates = {coder: phase_throughput(codec, images, batches, card, coder,
+                                     label="13e hific throughput")
+             for coder in ("host", "device")}
+    profiles = {coder: profile_device(
+        f"13f hific, {coder} coder, compress_batch + decompress_batch of {BATCH}",
+        lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)), top=8)
+        for coder in ("host", "device")}
+    return dict(train=train, host_launches=host_launches, launches=launches, rans=rans_k,
+                throughput=rates, profile=profiles, coded_bpp=coded, host_bpp=host_bpp)
 
 
 def main() -> int:
@@ -1689,31 +2026,29 @@ def main() -> int:
     for coder in ("host", "device"):
         phase_throughput(codec, images, args.batches, card, coder)
     for coder in ("host", "device"):
-        per_kernel = phase_profile(
+        prof = profile_device(
             f"{coder} coder, compress_batch + decompress_batch of {BATCH}",
             lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)),
             top=10)
-        if coder == "device":
+        if coder == "device" and prof:
             # K3 is its fields and lanes kernels (its output's zero fill is
             # a PyTorch fill kernel, not told apart here).
-            inside = {name: sum(ms for k, (ms, _) in per_kernel.items()
-                                if any(f"{p}_kernel" in k for p in parts))
-                      for name, parts in (("rans_encode", ("rans_fields", "rans_encode")),
-                                          ("rans_decode", ("rans_decode",)))}
             log("  inside the codec: " + ", ".join(
-                f"{label} {inside[name]:.4f} ms (standalone {rans_k[name]['ms']:.4f} ms)"
-                for label, name in (("K3", "rans_encode"), ("K2", "rans_decode"))))
+                f"{kind} {prof['by_kind_ms'][kind]:.4f} ms (standalone "
+                f"{rans_k[name]['ms']:.4f} ms)"
+                for kind, name in (("K3", "rans_encode"), ("K2", "rans_decode"))))
         batch_list = [images] * args.batches
-        phase_profile(f"{coder} coder, compress_iter then decompress_iter, "
-                      f"{args.batches} batches",
-                      lambda: list(codec.decompress_iter(
-                          list(codec.compress_iter(batch_list, coder=coder)))))
+        profile_device(f"{coder} coder, compress_iter then decompress_iter, "
+                       f"{args.batches} batches",
+                       lambda: list(codec.decompress_iter(
+                           list(codec.compress_iter(batch_list, coder=coder)))))
     del codec
     training = phase_training(model, card, args.reps)
     factorized = phase_factorized(card)
     mbt = phase_mbt2018(card, args.reps, args.batches)
     b2018s = phase_b2018(card)
     ms = phase_ms2020(card, args.reps, args.batches)
+    hi = phase_hific(card, args.reps, args.batches)
 
     # Each kernel's launches on every path, each path counted on its own.
     paths = {
@@ -1729,6 +2064,9 @@ def main() -> int:
         "ms2020 codec, host coder": ms["host_launches"],
         "ms2020 codec, device coder": ms["launches"],
         "ms2020 train step": ms["train"]["launches"],
+        "hific codec, host coder": hi["host_launches"],
+        "hific codec, device coder": hi["launches"],
+        "hific train step": hi["train"]["launches"],
     }
 
     kernels = [{
@@ -1764,7 +2102,7 @@ def main() -> int:
             "paths": {path: counts.get(name, 0) for path, counts in paths.items()},
             **{family: {k: r["rans"][name][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms", "steps")}
-               for family, r in (("mbt2018", mbt), ("ms2020", ms))},
+               for family, r in (("mbt2018", mbt), ("ms2020", ms), ("hific", hi))},
         })
     train_line = {
         "batch": TRAIN_BATCH, "patch": TRAIN_PATCH,
@@ -1784,6 +2122,8 @@ def main() -> int:
         "ms2020-cc10": {"train": {k: v for k, v in ms["train"].items() if k != "launches"},
                         "throughput": ms["throughput"], "chain": ms["chain"],
                         "k1_max_abs_err": ms["k1_max_abs_err"]},
+        "hific-mi": {"train": {k: v for k, v in hi["train"].items() if k != "launches"},
+                     **{k: hi[k] for k in ("throughput", "profile", "coded_bpp", "host_bpp")}},
     }
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels, "training": train_line, "families": families}))

@@ -17,7 +17,11 @@ its module paths so every counterpart is easy to find:
                    device coders; training), bls2017 factorized prior in
                    its two archs (bls2017, bmshj2018-factorized) and the
                    variable-rate b2018 (one-image Codecs; training),
-                   codec_base.py (what the codecs share),
+                   hific/ (HiFiC: ChannelNorm, the Encoder, Generator and
+                   spectral-norm Discriminator, LPIPS on VGG16, the joint
+                   G/D step with its rate controller, the Codec with both
+                   coders, the train driver), codec_base.py (what the
+                   codecs share),
                    device_coding.py (blob formats, the device coder's
                    stages), common.py (train loop, data, checkpoints)
   parallel/        double-buffered device/host coding pipeline, staggered
@@ -25,6 +29,8 @@ its module paths so every counterpart is easy to find:
   util/            PackedTensors, image padding and metrics, numeric, stage timing
   csrc/            CUDA C++ kernels (gdn.cu, rans.cu), built with nvcc at first use
   convert.py       weight bridge to and from the JAX package's flax checkpoints
+                   (nested holders, flax nn.Conv kernels, spectral-norm
+                   batch_stats)
   entry.py         bmshj2018's full-width loss step with example arguments
 
 It imports torch and numpy, never JAX or the JAX package. Entry points run

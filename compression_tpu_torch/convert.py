@@ -9,18 +9,26 @@ in both directions.
   :func:`pack_msgpack` is the matching writer: what it writes, flax's
   ``serialization.from_bytes`` reads.
 * :func:`params_from_numpy` maps such a tree (``params/params/...`` or any
-  suffix of it) onto a model's state dict. Each top-level holder is
-  recognised by its structure, not its name: a dict with a
-  ``deep_factorized`` child is a prior (``prior``, ``hyperprior``); a dict
-  of layers with ``kernel`` / ``bias`` / ``beta`` / ``gamma`` leaves is a
-  transform (``analysis``, ``mean_t3``, ...); a bare array is a top-level
-  parameter (b2018's ``gain``). Conv kernels ``(kh, kw, cin, cout)``
-  become OIHW ``(cout, cin, kh, kw)``; GDN ``beta``/``gamma`` stay raw
-  (sqrt space, reparameterized at call time); the DeepFactorized
-  ``matrices`` / ``biases`` / ``factors`` lists map as they are.
-  :func:`params_to_numpy` is its inverse, the flax param tree of a state
-  dict (also used for per-parameter optimizer moments), by the same rule
-  on the state dict's keys.
+  suffix of it) onto a model's state dict. Each holder is recognised by its
+  structure, not its name, at any depth: a dict with a ``deep_factorized``
+  child is a prior (``prior``, ``hyperprior``); a dict of ``kernel`` /
+  ``bias`` / ``beta`` / ``gamma`` leaves is a layer (``analysis.conv0``,
+  HiFiC's ``generator.res0.norm0``, the discriminator's top-level
+  ``conv0``, LPIPS's ``vgg.conv0_0``); any other dict holds further
+  holders (``analysis``, ``generator``, ``generator.res0``); a bare array
+  is a parameter of its own (b2018's ``gain``, LPIPS's ``lin0``). Conv
+  kernels ``(kh, kw, cin, cout)``, of ``SignalConv2D`` and flax ``nn.Conv``
+  alike, become OIHW ``(cout, cin, kh, kw)``; GDN ``beta``/``gamma`` stay
+  raw (sqrt space, reparameterized at call time), as do ChannelNorm's
+  vectors; the DeepFactorized ``matrices`` / ``biases`` / ``factors`` lists
+  map as they are. :func:`params_to_numpy` is its inverse, the flax param
+  tree of a state dict (also used for per-parameter optimizer moments), by
+  the same rule on the state dict's keys.
+* :func:`variables_from_numpy` / :func:`variables_to_numpy` add the
+  ``batch_stats`` of flax's ``SpectralNorm`` (HiFiC's discriminator): the
+  i-th spectral-normalized layer ``conv0`` keeps ``SpectralNorm_{i}/
+  {"conv0/kernel/u", "conv0/kernel/sigma"}`` there, the port keeps the
+  buffers ``conv0.u`` and ``conv0.sigma``.
 """
 
 from __future__ import annotations
@@ -32,8 +40,8 @@ import numpy as np
 import torch
 
 __all__ = ["load_flax_msgpack", "unpack_msgpack", "pack_msgpack",
-           "params_from_numpy", "params_to_numpy", "kernel_to_torch",
-           "flax_key_path"]
+           "params_from_numpy", "params_to_numpy", "variables_from_numpy",
+           "variables_to_numpy", "kernel_to_torch", "flax_key_path"]
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -202,10 +210,11 @@ def _is_prior_key(parts) -> bool:
     return len(parts) == 3 and parts[1] in _PRIOR_FIELDS
 
 
-def _is_transform(holder) -> bool:
-    return bool(holder) and all(
-        isinstance(leaves, dict) and leaves and set(leaves) <= set(_LAYER_LEAVES)
-        for leaves in holder.values())
+def _is_layer(node) -> bool:
+    """A dict of a layer's leaves (kernel, bias, GDN's or ChannelNorm's
+    beta and gamma), each an array."""
+    return bool(node) and set(node) <= set(_LAYER_LEAVES) and not any(
+        isinstance(v, dict) for v in node.values())
 
 
 def _array(value) -> torch.Tensor:
@@ -216,30 +225,35 @@ def _numpy(value: torch.Tensor) -> np.ndarray:
     return value.detach().to("cpu", torch.float32).numpy().copy()
 
 
+def _holder_to_state(key: str, node, state: Dict[str, torch.Tensor]) -> None:
+    if not isinstance(node, dict):  # a parameter array of its own
+        state[key] = _array(node)
+    elif "deep_factorized" in node:
+        prior = node["deep_factorized"]
+        for field in _PRIOR_FIELDS:
+            for i, value in enumerate(_as_list(prior[field])):
+                state[f"{key}.{field}.{i}"] = _array(value)
+    elif _is_layer(node):
+        for leaf, value in node.items():
+            if leaf == "kernel":
+                state[f"{key}.weight"] = kernel_to_torch(value)
+            else:
+                state[f"{key}.{leaf}"] = _array(value)
+    elif node:
+        for name, child in node.items():
+            _holder_to_state(f"{key}.{name}", child, state)
+    else:
+        raise KeyError(f"unexpected parameter holder {key!r}")
+
+
 def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Maps a JAX param tree onto the port's state dict (see the module
-    docstring); raises on a top-level key or leaf it does not know."""
+    docstring); raises on an empty holder."""
     while "params" in tree:  # {"params": {"params": {...}}, "step": ...}
         tree = tree["params"]
     state: Dict[str, torch.Tensor] = {}
     for name, holder in tree.items():
-        if not isinstance(holder, dict):  # a top-level parameter array
-            state[name] = _array(holder)
-        elif "deep_factorized" in holder:
-            prior = holder["deep_factorized"]
-            for field in _PRIOR_FIELDS:
-                for i, value in enumerate(_as_list(prior[field])):
-                    state[f"{name}.{field}.{i}"] = _array(value)
-        elif _is_transform(holder):
-            for layer, leaves in holder.items():
-                for leaf, value in leaves.items():
-                    key = f"{name}.{layer}"
-                    if leaf == "kernel":
-                        state[f"{key}.weight"] = kernel_to_torch(value)
-                    else:
-                        state[f"{key}.{leaf}"] = _array(value)
-        else:
-            raise KeyError(f"unexpected top-level parameter {name!r}")
+        _holder_to_state(name, holder, state)
     return state
 
 
@@ -257,16 +271,56 @@ def params_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             name, field, i = parts
             prior = tree.setdefault(name, {}).setdefault("deep_factorized", {})
             prior.setdefault(field, {})[i] = _numpy(value)
-        elif len(parts) == 3 and parts[2] in ("weight",) + _LAYER_LEAVES[1:]:
-            name, layer, leaf = parts
-            if leaf == "weight":
-                leaf, arr = "kernel", kernel_from_torch(value)
+        elif parts[-1] in ("weight",) + _LAYER_LEAVES[1:]:
+            node = tree
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            if parts[-1] == "weight":
+                node["kernel"] = kernel_from_torch(value)
             else:
-                arr = _numpy(value)
-            tree.setdefault(name, {}).setdefault(layer, {})[leaf] = arr
+                node[parts[-1]] = _numpy(value)
         else:
             raise KeyError(f"unexpected parameter {key}")
     return tree
+
+
+_SPECTRAL_STATE = ("u", "sigma")  # the buffers of a spectral-normalized layer
+
+
+def variables_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A state dict with spectral-norm buffers (``conv0.u``,
+    ``conv0.sigma``) as flax variables ``{"params": ..., "batch_stats":
+    {"SpectralNorm_0": {"conv0/kernel/u": ..., "conv0/kernel/sigma": ...},
+    ...}}``, the layers numbered in the state dict's order (the order flax
+    names the wrappers in)."""
+    params, stats, layers = {}, {}, []
+    for key, value in state.items():
+        layer, _, leaf = key.rpartition(".")
+        if leaf not in _SPECTRAL_STATE:
+            params[key] = value
+            continue
+        if layer not in layers:
+            layers.append(layer)
+        name = f"SpectralNorm_{layers.index(layer)}"
+        flax_layer = layer.replace(".", "/")
+        stats.setdefault(name, {})[f"{flax_layer}/kernel/{leaf}"] = _numpy(value)
+    out = {"params": params_to_numpy(params)}
+    if stats:
+        out["batch_stats"] = stats
+    return out
+
+
+def variables_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`variables_to_numpy`: flax variables (params
+    and the spectral norms' ``batch_stats``) as one state dict."""
+    state = params_from_numpy(tree["params"])
+    for entries in tree.get("batch_stats", {}).values():
+        for path, value in entries.items():
+            *layer, kernel, leaf = path.split("/")
+            if kernel != "kernel" or leaf not in _SPECTRAL_STATE:
+                raise KeyError(f"unexpected batch_stats entry {path!r}")
+            state[".".join(layer) + "." + leaf] = _array(value)
+    return state
 
 
 def flax_key_path(name: str) -> str:

@@ -31,7 +31,8 @@ from torch import nn
 
 from compression_tpu_torch.ops.padding_ops import same_padding_for_kernel
 
-__all__ = ["signal_conv", "phase_kernel", "SignalConv2D", "fan_avg_truncated_normal"]
+__all__ = ["signal_conv", "phase_kernel", "conv_nhwc", "SignalConv2D",
+           "truncated_normal_init"]
 
 _Pad = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -45,7 +46,7 @@ def _pair(value: Union[int, Sequence[int]], name: str) -> Tuple[int, int]:
     return value
 
 
-def _conv_nhwc(x: torch.Tensor, weight: torch.Tensor, pad: _Pad,
+def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, pad: _Pad,
                stride: Tuple[int, int]) -> torch.Tensor:
     """Zero-padded strided correlation of an NHWC tensor; returns NHWC."""
     xc = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
@@ -115,7 +116,7 @@ def _phase_upsampled_conv(x, weight, sd, su, pad, extra_pad_end):
     conv_pad = tuple(
         (-mlo[d], Q[d] - 1 + mlo[d] + M[d] - n[d]) for d in range(2)
     )
-    out = _conv_nhwc(x, pk, conv_pad, (1, 1))  # (N, Q0, Q1, P*cout)
+    out = conv_nhwc(x, pk, conv_pad, (1, 1))  # (N, Q0, Q1, P*cout)
     nb = out.shape[0]
     out = out.reshape(nb, Q[0], Q[1], su[0], su[1], cout)
     out = out.permute(0, 1, 3, 2, 4, 5).reshape(
@@ -157,7 +158,7 @@ def signal_conv(
         weight = torch.flip(weight, (2, 3))
     if su != (1, 1):
         return _phase_upsampled_conv(x, weight, sd, su, pad, extra_pad_end)
-    return _conv_nhwc(x, weight, pad, sd)
+    return conv_nhwc(x, weight, pad, sd)
 
 
 # Standard deviation of a unit normal cut at +-2 (the JAX initializer's
@@ -165,16 +166,17 @@ def signal_conv(
 _TRUNCATED_STD = 0.87962566103423978
 
 
-def fan_avg_truncated_normal(weight: torch.Tensor,
-                             generator: torch.Generator) -> torch.Tensor:
-    """Fills an OIHW ``weight`` as ``variance_scaling(1.0, "fan_avg",
-    "truncated_normal")``, the JAX package's default kernel init: a normal
-    cut at +-2 standard deviations, scaled to variance ``1 / fan_avg`` with
-    ``fan_avg = (cin + cout) * kh * kw / 2``; drawn by the inverse CDF from
+def truncated_normal_init(weight: torch.Tensor, generator: torch.Generator,
+                          mode: str = "fan_avg") -> torch.Tensor:
+    """Fills an OIHW ``weight`` as ``variance_scaling(1.0, mode,
+    "truncated_normal")``: a normal cut at +-2 standard deviations, scaled to
+    variance ``1 / fan`` with ``fan_in = cin * kh * kw`` (flax ``nn.Conv``'s
+    default, ``lecun_normal``) or ``fan_avg = (cin + cout) * kh * kw / 2``
+    (the JAX package's SignalConv2D default); drawn by the inverse CDF from
     ``generator``'s uniforms, as ``jax.random.truncated_normal`` draws."""
     cout, cin, kh, kw = weight.shape
-    fan_avg = (cin + cout) * kh * kw / 2.0
-    std = math.sqrt(1.0 / fan_avg) / _TRUNCATED_STD
+    fans = {"fan_in": cin * kh * kw, "fan_avg": (cin + cout) * kh * kw / 2.0}
+    std = math.sqrt(1.0 / fans[mode]) / _TRUNCATED_STD
     lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
     with torch.no_grad():
         u = torch.rand(weight.shape, generator=generator, dtype=torch.float64)
@@ -186,7 +188,7 @@ class SignalConv2D(nn.Module):
     """2-D SignalConv over NHWC activations (see module docstring).
 
     Parameters: ``weight`` OIHW ``(num_filters, in_channels, kh, kw)``,
-    drawn by :func:`fan_avg_truncated_normal` from ``generator`` (a fresh
+    drawn by :func:`truncated_normal_init` at ``fan_avg`` from ``generator`` (a fresh
     one seeded 0 if none is given), and, with ``use_bias``, ``bias``
     ``(num_filters,)`` at zero.
     """
@@ -220,7 +222,7 @@ class SignalConv2D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_filters)) if use_bias else None
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        fan_avg_truncated_normal(self.weight, generator)
+        truncated_normal_init(self.weight, generator, "fan_avg")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = signal_conv(

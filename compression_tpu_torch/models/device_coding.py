@@ -9,7 +9,7 @@ y stream a channel slice: its blobs hold ``num_slices + 3`` and
 a device-coded blob is K-lane rANS (:mod:`compression_tpu_torch.codec.rans`),
 coded on the card; only its compressed words cross to the host.
 
-The hyperprior codecs (bmshj2018, mbt2018; HiFiC later) share the
+The hyperprior codecs (bmshj2018, mbt2018, HiFiC) share the
 device-coded stages here, duck-typed against the codec as in the JAX
 package: z factorized, y coded as ``round(y - mu)`` (``round(y)`` without a
 mean) against sigma-indexed rows. A codec has

@@ -2,8 +2,8 @@
 any width up to 192, K3/K2 rANS encode/decode) against their plain twins, K1
 under autograd, the codecs on the card (bmshj2018 with either coder,
 bls2017 in both archs, mbt2018 with either coder, b2018 at 192 filters,
-ms2020 at full width with either coder), and training steps, against the
-CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
+ms2020 and HiFiC at full width with either coder), and training steps
+(HiFiC's joint G/D step among them), against the CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
 without JAX run it alone, without the suite's conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -20,8 +20,11 @@ from compression_tpu_torch.codec import pmf_to_quantized_cdf, rans, rans_ref
 from compression_tpu_torch.entropy_models.continuous_base import CdfTables
 from compression_tpu_torch.layers import fused_gdn, fused_gdn_reference, parameters
 from compression_tpu_torch.layers.gdn_kernel import FusedGDN
-from compression_tpu_torch.models import b2018, bls2017, bmshj2018, common, mbt2018, ms2020
+from compression_tpu_torch.entropy_models import continuous_batched, continuous_indexed
+from compression_tpu_torch.models import (b2018, bls2017, bmshj2018, common, hific, mbt2018,
+                                          ms2020)
 from compression_tpu_torch.models.device_coding import num_fields, rans_for
+from compression_tpu_torch.models.hific import lpips as hific_lpips
 from compression_tpu_torch.util import PackedTensors
 from compression_tpu_torch.util.image import pad_to_multiple_np
 
@@ -721,3 +724,97 @@ def test_rans_kernels_match_twins_on_an_ms2020_slice(cuda):
                                                        values.shape[1])
         assert torch.equal(out, want_out) and torch.equal(ok, want_ok)
         assert bool(ok.all()) and torch.equal(out, values)
+
+
+# -- HiFiC ------------------------------------------------------------------------
+
+
+def test_hific_codec_on_card_matches_cpu(cuda):
+    """hific-mi at full width on 3 images of 96x130 (padded to 128x192): a
+    device-coded round trip launches K3 2, K2 1 and no K1, and decodes to
+    the host coder's reconstruction; a blob decodes alone as in the batch;
+    re-compression is byte-identical; the CPU codec on the same tables is
+    within one level."""
+    cfg = hific.get_config("hific-mi")
+    cpu = hific.Codec(hific.HificModel(cfg, seed=3), device="cpu")
+    gpu = hific.Codec(hific.HificModel(cfg, seed=3), device=cuda,
+                      tables={"side": cpu.side_em.tables, "main": cpu.em.tables})
+    images = (np.random.RandomState(8).rand(3, 96, 130, 3) * 255).astype(np.uint8)
+    before = (rans.rans_encode.launches, rans.rans_decode.launches, fused_gdn.launches)
+    blobs = gpu.compress_batch(images, coder="device")
+    out = gpu.decompress_batch(blobs)
+    assert (rans.rans_encode.launches, rans.rans_decode.launches,
+            fused_gdn.launches) == (before[0] + 2, before[1] + 1, before[2])
+    assert all(num_fields(b) == 5 and PackedTensors(b).model == "hific-mi" for b in blobs)
+    host = gpu.compress_batch(images)
+    assert all(num_fields(b) == 4 for b in host)
+    np.testing.assert_array_equal(gpu.decompress_batch(host), out)
+    np.testing.assert_array_equal(gpu.decompress(blobs[1]), out[1])
+    assert gpu.compress_batch(images, coder="device") == blobs
+    cpu_out = cpu.decompress_batch(cpu.compress_batch(images))
+    assert np.abs(cpu_out.astype(np.int16) - out.astype(np.int16)).max() <= 1
+
+
+def test_hific_joint_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One joint G/D step of a small HiFiC (8 latents, 4 hyperlatents, one
+    residual block) on 2 crops of 128x128, the noise drawn once on the
+    CPU, run on the CPU in float64 (the reference), on the card in float64
+    and float32, and on the CPU in float32. float64: the card's losses
+    within 1e-10 relative of the CPU's, and every G and D gradient and D's
+    spectral-norm state within 1e-8 of its largest entry. float32: the
+    losses within 1e-4 relative of the CPU's, the spectral-norm state
+    within 1e-3, and the gradients, each against float64, no further from
+    it on the card than 3x the CPU's distance, for the worst tensor and the
+    median one (a ReLU at the 2 x 8 x 8 latents that flips where a forward
+    is an ulp from 0 moves a gradient by ~1/128 of its sum, so float32 is
+    not held to the CPU's float32). No kernel of the port launches in a
+    training step."""
+    cfg = hific.HificConfig(name="hific-test", target_rate=0.3, num_latents=8,
+                            num_hyperlatents=4, num_residual_blocks=1)
+    gen = torch.Generator().manual_seed(1)
+    noise = [torch.rand(shape, generator=gen) - 0.5
+             for shape in ((2, 2, 2, 4), (2, 8, 8, 8), (2, 2, 2, 8))]
+    x = torch.from_numpy(np.random.RandomState(2).rand(2, 128, 128, 3).astype(np.float32))
+    runs = {}
+    for device, dtype in (("cpu", torch.float64), (cuda, torch.float64),
+                          (cuda, torch.float32), ("cpu", torch.float32)):
+        queue = list(noise)
+        for module in (continuous_batched, continuous_indexed):
+            monkeypatch.setattr(module, "uniform_noise",
+                                lambda t, g: queue.pop(0).to(t.device, t.dtype))
+        model = hific.HificModel(cfg, seed=3).to(device, dtype)
+        disc = hific.Discriminator(cfg.num_latents, seed=4).to(device, dtype)
+        lpips = hific_lpips.LPIPS(seed=5).requires_grad_(False).to(device, dtype)
+        step, _, _ = hific.make_train_steps(model, disc, lpips, cfg)
+        counts = (fused_gdn.launches, rans.rans_encode.launches, rans.rans_decode.launches)
+        metrics = step(x.to(device, dtype), None)
+        assert queue == []
+        assert (fused_gdn.launches, rans.rans_encode.launches,
+                rans.rans_decode.launches) == counts
+        tensors = {**{f"G {n}": p.grad.cpu() for n, p in model.named_parameters()},
+                   **{f"D {n}": p.grad.cpu() for n, p in disc.named_parameters()},
+                   **{f"D {n}": b.cpu() for n, b in disc.named_buffers()}}
+        runs[device, dtype] = ({k: v.item() for k, v in metrics.items()}, tensors)
+    m_ref, t_ref = runs["cpu", torch.float64]
+    for (m_gpu, t_gpu), (m_cpu, t_cpu), loss_tol in (
+            (runs[cuda, torch.float64], runs["cpu", torch.float64], 1e-10),
+            (runs[cuda, torch.float32], runs["cpu", torch.float32], 1e-4)):
+        for k in ("g_loss", "d_loss"):
+            np.testing.assert_allclose(m_gpu[k], m_cpu[k], rtol=loss_tol, err_msg=k)
+    t64 = runs[cuda, torch.float64][1]
+    for n, want in t_ref.items():
+        torch.testing.assert_close(t64[n], want, rtol=0,
+                                   atol=1e-8 * want.abs().max().item(), msg=n)
+    (_, t_gpu), (_, t_cpu) = runs[cuda, torch.float32], runs["cpu", torch.float32]
+
+    def rel(got, want):
+        return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+    for n in t_ref:
+        if n.endswith((".u", ".sigma")):
+            assert rel(t_gpu[n], t_cpu[n]) <= 1e-3, n
+    grads = [n for n in t_ref if not n.endswith((".u", ".sigma"))]
+    card = np.array([rel(t_gpu[n], t_ref[n]) for n in grads])
+    cpu = np.array([rel(t_cpu[n], t_ref[n]) for n in grads])
+    assert card.max() <= 3 * cpu.max(), (card.max(), cpu.max())
+    assert np.median(card) <= 3 * np.median(cpu), (np.median(card), np.median(cpu))
