@@ -1,7 +1,7 @@
 """On-card smoke run of the PyTorch/CUDA port: bmshj2018 at full width, with
-the host coder and with the device (rANS) coder, its training, and the
-other families at full width (bls2017, bmshj2018-factorized, mbt2018-mean,
-b2018, ms2020-cc10, HiFiC).
+the host coder and with the device (rANS) coder, its training, the other
+families at full width (bls2017, bmshj2018-factorized, mbt2018-mean, b2018,
+ms2020-cc10, HiFiC), and the tfci CLI.
 
     python3 chip_smoke.py [--batches N] [--reps N]
 
@@ -143,7 +143,33 @@ of a checkout. Phases, each fatal on failure:
     2,640), with times, bounds and serial floors; e. compress_iter /
     decompress_iter throughput with each coder; f. a profile of one round
     trip with each coder: device ms by kind (convolutions, ChannelNorm's
-    forward ops, K3, K2, copies, other) and the idle share.
+    forward ops, K3, K2, copies, other) and the idle share;
+14. the tfci CLI (``compression_tpu_torch.cli.tfci``) in a model directory
+    of its own that holds ckpt/bmshj2018.msgpack as
+    bmshj2018-hyperprior.msgpack, on a structured 768x512 PNG written by the
+    port's PNG codec: ``models``; ``compress`` with the host coder (it
+    builds and writes the table file ``<ckpt>.<mtime_ns>.<size>.tables.npz``);
+    ``compress --device-coder`` in a second process (``python -X importtime
+    -m``), which loads that file and leaves it as it was, and again here,
+    to the same bytes; ``decompress`` of both files here and in two more
+    processes (one reports its start-up to the first device call), all
+    equal, the two coders' decodes equal; the host-coded file byte-identical
+    to ``bmshj2018.Codec.compress`` on the same tables (the device-coded one
+    too), PSNR above 25 dB; the card's file decoded on the CPU (equal share
+    printed, not held); the CLI's img/s against the Codec API's on the same
+    image; ``dump --output``; ``eval`` over 3 images (the MS-SSIM column);
+    ``train bmshj2018`` 20 steps of 8x256x256, then on to 30, resuming at
+    step 20, the loss falling over the 30 steps, and its checkpoint through
+    ``compress``/``decompress``; launches per verb (the counts set to 0
+    before each and read after: K1 3 a compress and 3 a decompress, K3 2
+    with the device coder, K2 1 on the device-coded decode; K1 6 a training
+    step and an evaluated image), and the same counts in ``profile_device``'s
+    trace; every registry family through the CLI: at TPC_TINY_MODELS=1,
+    bls2017, bmshj2018-factorized, mbt2018, ms2020 and b2018-gdn-128
+    (``--rd_parameter 2``) trained 3 steps, then compressed and
+    decompressed with each coder the family has, and hific-lo at full width
+    with ``--allow-random``, both coders; no verb, here or in the other
+    processes, imports PIL.
 
 Then one JSON line with every kernel's numbers (and its launches on every
 path), the training numbers and the families' numbers, the card line, and
@@ -844,8 +870,8 @@ def profile_device(label: str, run, steps: int = 1, top: int = 0) -> dict:
     count of the ``aten::conv2d`` ops (from their shapes), over their own
     device time. ChannelNorm's forward is traced by a ``record_function``
     for the run. ``top`` kernels are listed by their own time. Returns
-    wall_ms, busy_ms, activity_ms, idle, device_activities, by_kind_ms and
-    conv_forward_tflop."""
+    wall_ms, busy_ms, activity_ms, idle, device_activities, by_kind_ms,
+    count_by_kind (device activities of each kind) and conv_forward_tflop."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -881,6 +907,7 @@ def profile_device(label: str, run, steps: int = 1, top: int = 0) -> dict:
     kinds = dict.fromkeys(("conv_forward", "conv_backward", "channelnorm", "K1",
                            "gdn_backward", "adam", "K3", "K2", "copies", "other"), 0.0)
     per_kernel, overlap, end, end_stream, same_stream = {}, {}, float("-inf"), None, 0.0
+    counts = dict.fromkeys(kinds, 0)
     for start, stop, name, linked, stream in device:
         own = max(0, stop - max(start, end)) / 1e6
         if start < end and stream == end_stream:
@@ -891,7 +918,9 @@ def profile_device(label: str, run, steps: int = 1, top: int = 0) -> dict:
         while parent is not None:
             chain.append(parent.name)
             parent = parent.cpu_parent
-        kinds[kind_of(name, chain)] += own
+        kind = kind_of(name, chain)
+        kinds[kind] += own
+        counts[kind] += 1
         ms, calls = per_kernel.get(name, (0.0, 0))
         per_kernel[name] = (ms + own, calls + 1)
         overlap[name] = overlap.get(name, 0.0) + (stop - start) / 1e6 - own
@@ -918,7 +947,8 @@ def profile_device(label: str, run, steps: int = 1, top: int = 0) -> dict:
     for name, (ms, calls) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {ms:8.2f} ms {calls:5d}x  {name[:110]}")
     return dict(wall_ms=wall_ms, busy_ms=busy, activity_ms=total, idle=1 - busy / wall_ms,
-                device_activities=len(device), by_kind_ms=kinds, conv_forward_tflop=tflop)
+                device_activities=len(device), by_kind_ms=kinds, count_by_kind=counts,
+                conv_forward_tflop=tflop)
 
 
 def phase_throughput(codec, images, batches: int, card: str, coder: str,
@@ -2001,6 +2031,386 @@ def phase_hific(card: str, reps: int, batches: int) -> dict:
                 throughput=rates, profile=profiles, coded_bpp=coded, host_bpp=host_bpp)
 
 
+# -- phase 14: the tfci CLI ---------------------------------------------------
+
+CLI = "compression_tpu_torch.cli.tfci"
+# A subprocess runs the CLI as `-m` does, and reports on stderr the epoch
+# time at which it first initializes the card (torch.cuda's lazy init).
+CLI_FIRST_CALL = (
+    "import runpy, sys, time, torch\n"
+    "init = torch.cuda._lazy_init\n"
+    "def lazy_init():\n"
+    "    if not torch.cuda.is_initialized():\n"
+    "        print(f'first device call at {time.time()!r}', file=sys.stderr, flush=True)\n"
+    "    init()\n"
+    "torch.cuda._lazy_init = lazy_init\n"
+    f"runpy.run_module({CLI!r}, run_name='__main__', alter_sys=True)\n"
+)
+# K1 launches of one compress (or one decompress) of a family's codec.
+CLI_GDN = {"bls2017": 2, "bmshj2018-factorized": 3, "mbt2018": 3,
+           "ms2020": 3, "b2018-gdn-128": 2, "hific-lo": 0}
+
+
+def reset_launches() -> None:
+    from compression_tpu_torch.codec import rans
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+
+    fused_gdn.launches = rans.rans_encode.launches = rans.rans_decode.launches = 0
+
+
+def read_launches() -> dict:
+    from compression_tpu_torch.codec import rans
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+
+    return {"gdn": fused_gdn.launches, "rans_encode": rans.rans_encode.launches,
+            "rans_decode": rans.rans_decode.launches}
+
+
+def launches_of(gdn: int = 0, enc: int = 0, dec: int = 0) -> dict:
+    return {"gdn": gdn, "rans_encode": enc, "rans_decode": dec}
+
+
+def tfci(argv: list, want=None, device: str = None, label: str = None) -> tuple:
+    """One CLI verb in this process (``main(argv)`` on ``device``, DEVICE by
+    default): its wall ms, its launches (the counts set to 0 just before it
+    and read just after; held to ``want``) and its standard output."""
+    from compression_tpu_torch.cli.tfci import main
+
+    reset_launches()
+    out = io.StringIO()
+    sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(["--device", device or DEVICE] + argv)
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_launches()
+    log(f"  tfci {label or ' '.join(argv[:2])}: {ms:.1f} ms, launches {launches}; "
+        + " | ".join(out.getvalue().strip().splitlines()[-2:]))
+    if rc != 0:
+        raise AssertionError(f"tfci {argv} returned {rc}")
+    if want is not None and launches != want:
+        raise AssertionError(f"tfci {argv}: expected launches {want}, saw {launches}")
+    return ms, launches, out.getvalue()
+
+
+def tfci_process(argv: list, first_call: bool = False) -> dict:
+    """One CLI verb in a process of its own: ``python -X importtime -m``
+    (or, with ``first_call``, the same module through runpy with the card's
+    first initialization reported). Returns wall ms, the start-up ms to
+    the first device call (or None) and the top-level modules imported."""
+    head = ["-c", CLI_FIRST_CALL] if first_call else ["-m", CLI]
+    cmd = [sys.executable, "-X", "importtime", *head, "--device", DEVICE, *argv]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.time()
+    proc = subprocess.run(cmd, env=env, cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=300)
+    wall_ms = 1e3 * (time.time() - t0)
+    if proc.returncode != 0:
+        raise AssertionError(f"tfci {argv} in its own process returned {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    first = re.search(r"first device call at (\S+)", proc.stderr)
+    startup_ms = 1e3 * (float(first.group(1)) - t0) if first else None
+    modules = {m.split(".")[0] for m in re.findall(
+        r"^import time:\s*\d+\s*\|\s*\d+\s*\|\s*(\S+)", proc.stderr, re.M)}
+    log(f"  tfci {' '.join(argv[:2])} in its own process: {wall_ms:.1f} ms"
+        + (", start-up to the first device call "
+           + (f"{startup_ms:.1f} ms" if first else "not measured (no device call seen)")
+           if first_call else "")
+        + f"; {proc.stdout.strip()}")
+    if "PIL" in modules or "jax" in modules or "compression_tpu" in modules:
+        raise AssertionError(f"the CLI process imported {modules & {'PIL', 'jax', 'compression_tpu'}}")
+    if "compression_tpu_torch" not in modules:
+        raise AssertionError("-X importtime showed no import of the port")
+    return dict(wall_ms=wall_ms, startup_ms=startup_ms)
+
+
+def cli_profile(label: str, argv: list, launches: dict) -> None:
+    """The verb again under ``profile_device``: the K1, K3 and K2 kernels
+    the trace shows equal the wrappers' counts."""
+    from compression_tpu_torch.cli.tfci import main
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        prof = profile_device(f"14 tfci {label}", lambda: main(["--device", DEVICE] + argv))
+    if not prof:
+        return
+    seen = {name: prof["count_by_kind"][kind] for name, kind in (
+        ("gdn", "K1"), ("rans_encode", "K3"), ("rans_decode", "K2"))}
+    log(f"  traced kernels of tfci {label}: {seen}")
+    if seen != launches:
+        raise AssertionError(f"tfci {label}: the trace shows {seen}, the wrappers {launches}")
+
+
+def equal_share(a: np.ndarray, b: np.ndarray) -> tuple:
+    diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(diff.max()), float(np.mean(diff == 0))
+
+
+def cli_tiny_families(tmp: pathlib.Path, png: str) -> dict:
+    """14i: every registry family through the CLI on the card: at
+    TPC_TINY_MODELS=1, 3 training steps, then compress and decompress with
+    each coder the family has; hific-lo at full width with random weights."""
+    os.environ["TPC_TINY_MODELS"] = "1"
+    out = {}
+    try:
+        for name, train, coders, extra in (
+                ("bls2017", "bls2017", ("host",), []),
+                ("bmshj2018-factorized", "bmshj2018-factorized", ("host",), []),
+                ("mbt2018", "mbt2018", ("host", "device"), []),
+                ("ms2020", "ms2020", ("host", "device"), []),
+                ("b2018-gdn-128", "b2018", ("host",), ["--rd_parameter", "2"])):
+            tfci(["train", train, "--steps", "3", "--batch-size", "2", "--patch-size", "64"])
+            out[name] = cli_round_trips(tmp, png, name, coders, extra)
+    finally:
+        del os.environ["TPC_TINY_MODELS"]
+    out["hific-lo"] = cli_round_trips(tmp, png, "hific-lo", ("host", "device"),
+                                      ["--allow-random"])
+    return out
+
+
+def cli_round_trips(tmp, png, name, coders, extra) -> dict:
+    """compress then decompress with each coder; both decodes equal."""
+    from compression_tpu_torch.util.image import read_png
+
+    gdn, decoded, launches = CLI_GDN[name], {}, {}
+    streams = 4 if name == "ms2020" else 1  # TPC_TINY_MODELS: 4 slices
+    for coder in coders:
+        dev = coder == "device"
+        tfci_file, out_png = str(tmp / f"{name}_{coder}.tfci"), str(tmp / f"{name}_{coder}.png")
+        flag = ["--device-coder"] if dev else []
+        launches[f"compress ({coder})"] = tfci(
+            ["compress", name, png, tfci_file, *extra, *flag],
+            want=launches_of(gdn, 2 * streams if dev else 0))[1]
+        launches[f"decompress ({coder})"] = tfci(
+            ["decompress", tfci_file, out_png, *(["--allow-random"] if "--allow-random" in extra
+                                                 else [])],
+            want=launches_of(gdn, 0, streams if dev else 0))[1]
+        decoded[coder] = read_png(out_png)
+        if decoded[coder].shape != (HEIGHT, WIDTH, 3):
+            raise AssertionError(f"{name}: decoded shape {decoded[coder].shape}")
+    if len(decoded) == 2 and not np.array_equal(decoded["host"], decoded["device"]):
+        raise AssertionError(f"{name}: the device-coded file decodes differently")
+    return launches
+
+
+def phase_cli(card: str) -> dict:
+    """Phase 14: the tfci CLI on the card, in a model directory of its own
+    holding ckpt/bmshj2018.msgpack as bmshj2018-hyperprior.msgpack."""
+    import shutil
+    import tempfile
+
+    from compression_tpu_torch.models import bmshj2018, codec_base, codec_cache, common
+    from compression_tpu_torch.entropy_models.continuous_base import load_tables
+    from compression_tpu_torch.util.image import psnr_np, read_png, write_png
+
+    log(f"tfci CLI (phase 14; {card}):")
+    t_phase = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="tfci_"))
+    models = tmp / "models"
+    models.mkdir()
+    ckpt = models / "bmshj2018-hyperprior.msgpack"
+    shutil.copy(ROOT / "ckpt" / "bmshj2018.msgpack", ckpt)
+    saved_env = {k: os.environ.pop(k, None)
+                 for k in ("TPC_MODEL_DIR", "TPC_TINY_MODELS", "TPC_TABLE_CACHE_FILE")}
+    os.environ["TPC_MODEL_DIR"] = str(models)
+    table_ms = []
+
+    def tables_via_disk_timed(build, module=None):
+        t0 = time.perf_counter()
+        tables = codec_cache.tables_via_disk(build, module)
+        table_ms.append(1e3 * (time.perf_counter() - t0))
+        return tables
+
+    codec_base.tables_via_disk = tables_via_disk_timed
+    losses = []
+    train_step = common.train_step
+
+    def train_step_recorded(*args, **kwargs):
+        loss, metrics = train_step(*args, **kwargs)
+        losses.append(loss.detach())
+        return loss, metrics
+
+    common.train_step = train_step_recorded
+    try:
+        image = structured_image(HEIGHT, WIDTH)
+        png = str(tmp / "in.png")
+        write_png(png, image)
+        evals = tmp / "eval"
+        evals.mkdir()
+        for seed in range(3):
+            write_png(str(evals / f"{seed}.png"), structured_image(HEIGHT, WIDTH, seed))
+        name = "bmshj2018-hyperprior"
+        a, b, b_own = (str(tmp / f) for f in ("a.tfci", "b.tfci", "b_own.tfci"))
+        ms = {}
+        # 14a models; 14b host-coded compress, building and writing the tables.
+        ms["models"] = tfci(["models"], want=launches_of())[0]
+        ms["compress (host, tables built)"] = tfci(["compress", name, png, a],
+                                                   want=launches_of(3))[0]
+        st = os.stat(ckpt)
+        table_file = f"{ckpt}.{st.st_mtime_ns}.{st.st_size}.tables.npz"
+        if len(table_ms) != 1 or not os.path.exists(table_file):
+            raise AssertionError(f"the first compress wrote no table file {table_file}")
+        before = os.stat(table_file)
+        # 14c the device-coded compress in a second process, which loads the tables.
+        sub = {"compress (device)": tfci_process(["compress", name, png, b, "--device-coder"])}
+        after = os.stat(table_file)
+        if (after.st_ino, after.st_mtime_ns) != (before.st_ino, before.st_mtime_ns):
+            raise AssertionError("the second process rebuilt the table file")
+        launch = {}
+        ms["compress (device)"], launch["compress (device)"], _ = tfci(
+            ["compress", name, png, b_own, "--device-coder"], want=launches_of(3, 2))
+        if open(b, "rb").read() != open(b_own, "rb").read():
+            raise AssertionError("the device-coded file differs between processes")
+        # 14d decompress of both files, here and in other processes.
+        ms["compress (host)"], launch["compress (host)"], _ = tfci(
+            ["compress", name, png, a], want=launches_of(3))
+        ms["decompress (host file)"], launch["decompress (host file)"], _ = tfci(
+            ["decompress", a, str(tmp / "a.png")], want=launches_of(3))
+        ms["decompress (device file)"], launch["decompress (device file)"], _ = tfci(
+            ["decompress", b, str(tmp / "b.png")], want=launches_of(3, 0, 1))
+        sub["decompress (device file)"] = tfci_process(["decompress", b, str(tmp / "b_sub.png")])
+        sub["decompress (host file)"] = tfci_process(["decompress", a, str(tmp / "a_sub.png")],
+                                                     first_call=True)
+        out_a, out_b = read_png(str(tmp / "a.png")), read_png(str(tmp / "b.png"))
+        if not np.array_equal(out_a, out_b):
+            raise AssertionError("the device-coded file decodes to another image")
+        for f, want in (("a_sub.png", out_a), ("b_sub.png", out_b)):
+            if not np.array_equal(read_png(str(tmp / f)), want):
+                raise AssertionError(f"{f}: the decode in another process differs")
+        if len(table_ms) < 5:
+            raise AssertionError(f"expected the tables loaded in every verb, saw {table_ms}")
+        # The Codec API on the same tables: the same bytes and image.
+        tables = load_tables(table_file)
+        codec = bmshj2018.Codec(bmshj2018.load_model(ckpt), device=DEVICE, tables=tables)
+        api = codec.compress(image)
+        if api != open(a, "rb").read():
+            raise AssertionError("the CLI's host-coded file differs from Codec.compress")
+        if codec.compress(image, "device") != open(b, "rb").read():
+            raise AssertionError("the CLI's device-coded file differs from Codec.compress")
+        if not np.array_equal(codec.decompress(api), out_a):
+            raise AssertionError("the CLI's decode differs from Codec.decompress")
+        psnr = float(psnr_np(out_a, image))
+        bpp = 8.0 * os.path.getsize(a) / (HEIGHT * WIDTH)
+        log(f"  host file {os.path.getsize(a)} B, {bpp:.4f} bpp, PSNR {psnr:.3f} dB; device "
+            f"file {os.path.getsize(b)} B; byte-identical to Codec.compress (both coders) "
+            "and between processes; the two coders' decodes equal, here and in other "
+            f"processes; table build+save {table_ms[0]:.1f} ms (first compress), load "
+            + ", ".join(f"{t:.1f}" for t in table_ms[1:]) + " ms (later verbs here); "
+            "the second process left the table file as it was")
+        if not psnr > 25.0:
+            raise AssertionError(f"PSNR {psnr:.3f} dB <= 25")
+        # 14e the card-written file decoded on the CPU: printed, not held.
+        cpu_png = str(tmp / "a_cpu.png")
+        tfci(["decompress", a, cpu_png], device="cpu", label="decompress on the CPU")
+        worst, share = equal_share(read_png(cpu_png), out_a)
+        log(f"  CPU decode of the card's file: {100 * share:.3f}% of pixels equal, "
+            f"max |diff| {worst} levels (not held: no decode across devices is promised)")
+        # 14f the CLI's cost per image against the Codec API's.
+        reps = 3
+        cli_c = min(tfci(["compress", name, png, a], want=launches_of(3))[0]
+                    for _ in range(reps))
+        cli_d = min(tfci(["decompress", a, str(tmp / "a.png")], want=launches_of(3))[0]
+                    for _ in range(reps))
+        api_c = min(timed_ms(lambda: codec.compress(image)) for _ in range(reps))
+        api_d = min(timed_ms(lambda: codec.decompress(api)) for _ in range(reps))
+        rates = {"cli_compress": 1e3 / cli_c, "cli_decompress": 1e3 / cli_d,
+                 "api_compress": 1e3 / api_c, "api_decompress": 1e3 / api_d}
+        log(f"  img/s (best of {reps}, one {HEIGHT}x{WIDTH} image): CLI compress "
+            f"{rates['cli_compress']:.3f} vs Codec {rates['api_compress']:.3f}, CLI "
+            f"decompress {rates['cli_decompress']:.3f} vs Codec {rates['api_decompress']:.3f}; "
+            f"the CLI's overhead {cli_c - api_c:.1f} / {cli_d - api_d:.1f} ms an image")
+        overhead = cli_overhead(name, ckpt, png, str(tmp / "o.png"), image)
+        # 14g dump and eval.
+        npz = str(tmp / "d.npz")
+        ms["dump"] = tfci(["dump", a, "--output", npz], want=launches_of())[0]
+        with np.load(npz) as dumped:
+            if str(dumped["model"]) != name or not {"0", "1", "2", "3"} <= set(dumped.files):
+                raise AssertionError(f"dump --output wrote {dumped.files}")
+        csv = str(tmp / "r.csv")
+        ms["eval (3 images)"] = tfci(["eval", name, str(evals / "*.png"), "--csv", csv],
+                                     want=launches_of(18))[0]
+        rows = open(csv).read().strip().splitlines()
+        if rows[0] != "image,bpp,psnr,msssim" or len(rows) != 5:
+            raise AssertionError(f"eval CSV: {rows}")
+        mean = [float(v) for v in rows[-1].split(",")[1:]]
+        log(f"  eval mean: {mean[0]:.4f} bpp, PSNR {mean[1]:.3f} dB, MS-SSIM {mean[2]:.5f}")
+        # 14h train 20 steps, then on to 30: it resumes at step 20.
+        train = ["train", "bmshj2018", "--batch-size", str(TRAIN_BATCH),
+                 "--patch-size", str(TRAIN_PATCH)]
+        ms["train (20 steps)"] = tfci(train + ["--steps", "20"], want=launches_of(120))[0]
+        ms["train (to 30, resumed)"], _, text = tfci(train + ["--steps", "30"],
+                                                     want=launches_of(60))
+        if f"resumed from {models / 'bmshj2018.train.msgpack'} @ step 20" not in text:
+            raise AssertionError(f"train did not resume at step 20: {text[-400:]}")
+        loss = [float(v) for v in torch.stack(losses).cpu()]
+        first, last = float(np.mean(loss[:5])), float(np.mean(loss[-5:]))
+        log(f"  {len(loss)} steps; mean loss over steps 1-5 {first:.4f}, 26-30 {last:.4f}")
+        if len(loss) != 30 or not np.all(np.isfinite(loss)) or not last < first:
+            raise AssertionError("the CLI's training loss did not fall")
+        tfci(["compress", "bmshj2018", png, str(tmp / "t.tfci")], want=launches_of(3))
+        tfci(["decompress", str(tmp / "t.tfci"), str(tmp / "t.png")], want=launches_of(3))
+        log(f"  the trained checkpoint: PSNR "
+            f"{float(psnr_np(read_png(str(tmp / 't.png')), image)):.3f} dB")
+        # Launches again, counted by the profiler's trace.
+        for label, argv in (("compress (host)", ["compress", name, png, a]),
+                            ("compress (device)", ["compress", name, png, b_own,
+                                                   "--device-coder"]),
+                            ("decompress (host file)", ["decompress", a, str(tmp / "a.png")]),
+                            ("decompress (device file)", ["decompress", b,
+                                                          str(tmp / "b.png")])):
+            cli_profile(label, argv, launch[label])
+        # 14i every family of the registry.
+        families = cli_tiny_families(tmp, png)
+        if "PIL" in sys.modules:
+            raise AssertionError("an in-process verb imported PIL")
+    finally:
+        codec_base.tables_via_disk = codec_cache.tables_via_disk
+        common.train_step = train_step
+        for k, v in saved_env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    log(f"  PIL not imported by any verb, here or in the other processes; phase 14 "
+        f"{total:.1f} s")
+    return dict(verb_ms=ms, processes=sub, launches=launch, families=families,
+                table_ms=table_ms, img_per_s=rates, overhead_ms=overhead, psnr=psnr, bpp=bpp,
+                eval_mean=dict(zip(("bpp", "psnr", "msssim"), mean)),
+                loss_first5=first, loss_last5=last, seconds=total)
+
+
+def cli_overhead(name: str, ckpt, png: str, out_png: str, image: np.ndarray) -> dict:
+    """The host steps a CLI verb takes around the codec, each timed alone
+    (best of 3): the seeded model build, the checkpoint's parse and load,
+    the move to the card, and the PNG read and write."""
+    from compression_tpu_torch.cli import registry
+    from compression_tpu_torch.models import common
+    from compression_tpu_torch.util.image import read_png, write_png
+
+    entry, _ = registry.resolve(name)
+    model = entry.make_model()
+    params = common.load_checkpoint(str(ckpt))[0]
+    steps = {"model build": entry.make_model,
+             "checkpoint parse": lambda: common.load_checkpoint(str(ckpt)),
+             "load_state_dict": lambda: model.load_state_dict(params),
+             "to the card": lambda: model.to("cpu").to(DEVICE),
+             "PNG read": lambda: read_png(png),
+             "PNG write": lambda: write_png(out_png, image)}
+    out = {k: min(timed_ms(fn) for _ in range(3)) for k, fn in steps.items()}
+    log("  a verb's host steps (ms, best of 3): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out.items()))
+    return out
+
+
+def timed_ms(fn) -> float:
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    return 1e3 * (time.perf_counter() - t0)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, default=8)
@@ -2049,6 +2459,7 @@ def main() -> int:
     b2018s = phase_b2018(card)
     ms = phase_ms2020(card, args.reps, args.batches)
     hi = phase_hific(card, args.reps, args.batches)
+    cli = phase_cli(card)
 
     # Each kernel's launches on every path, each path counted on its own.
     paths = {
@@ -2067,6 +2478,11 @@ def main() -> int:
         "hific codec, host coder": hi["host_launches"],
         "hific codec, device coder": hi["launches"],
         "hific train step": hi["train"]["launches"],
+        **{f"tfci bmshj2018-hyperprior {verb}": counts
+           for verb, counts in cli["launches"].items()},
+        **{f"tfci {name} {verb} (TPC_TINY_MODELS=1)" if name != "hific-lo"
+           else f"tfci {name} {verb} (--allow-random)": counts
+           for name, verbs in cli["families"].items() for verb, counts in verbs.items()},
     }
 
     kernels = [{
@@ -2126,7 +2542,12 @@ def main() -> int:
                      **{k: hi[k] for k in ("throughput", "profile", "coded_bpp", "host_bpp")}},
     }
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels, "training": train_line, "families": families}))
+    cli_line = {k: cli[k] for k in ("verb_ms", "processes", "table_ms", "img_per_s",
+                                    "overhead_ms", "psnr",
+                                    "bpp", "eval_mean", "loss_first5", "loss_last5",
+                                    "seconds")}
+    print(json.dumps({"kernels": kernels, "training": train_line, "families": families,
+                      "cli": cli_line}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -18,6 +18,7 @@ import dataclasses
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -96,7 +97,7 @@ class DeepFactorized(Distribution):
     def log_prob(self, x):
         x = torch.as_tensor(x)
         x = torch.broadcast_to(
-            x, torch.broadcast_shapes(x.shape, self.batch_shape)
+            x, np.broadcast_shapes(tuple(x.shape), tuple(self.batch_shape))
         )
         logits, dlogits = self._logits_and_derivative(x)
         tiny = torch.finfo(dlogits.dtype).tiny

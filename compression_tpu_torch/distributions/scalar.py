@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from compression_tpu_torch.distributions.base import Distribution
@@ -23,7 +24,9 @@ class Normal(Distribution):
 
     @property
     def batch_shape(self):
-        return tuple(torch.broadcast_shapes(self.loc.shape, self.scale.shape))
+        # NumPy's broadcast: torch.broadcast_shapes imports sympy on first
+        # use, seconds of a fresh process's table build.
+        return np.broadcast_shapes(tuple(self.loc.shape), tuple(self.scale.shape))
 
     def _z(self, x):
         return (x - self.loc) / self.scale

@@ -31,7 +31,13 @@ from compression_tpu_torch.codec import host as codec
 from compression_tpu_torch.distributions import helpers
 from compression_tpu_torch.ops.round_ops import round_st
 
-__all__ = ["CdfTables", "ContinuousEntropyModelBase", "uniform_noise"]
+__all__ = [
+    "CdfTables",
+    "ContinuousEntropyModelBase",
+    "load_tables",
+    "save_tables",
+    "uniform_noise",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +58,41 @@ class CdfTables:
     @property
     def num_cdfs(self) -> int:
         return self.cdf.shape[0]
+
+
+def save_tables(path: str, tables: dict) -> None:
+    """Saves a dict of named CdfTables to one .npz under the JAX package's
+    keys (``<name>.cdf``, ``.cdf_length``, ``.cdf_offset``, ``.offset``,
+    ``.precision``), written whole and renamed into place, so either
+    package reads the other's file."""
+    import os
+
+    arrays = {}
+    for name, t in tables.items():
+        arrays[f"{name}.cdf"] = t.cdf
+        arrays[f"{name}.cdf_length"] = t.cdf_length
+        arrays[f"{name}.cdf_offset"] = t.cdf_offset
+        arrays[f"{name}.offset"] = t.offset
+        arrays[f"{name}.precision"] = np.asarray(t.precision)
+    tmp = f"{path}.tmp{os.getpid()}.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def load_tables(path: str) -> dict:
+    """Inverse of :func:`save_tables`."""
+    with np.load(path) as data:
+        names = sorted({k.split(".")[0] for k in data.files})
+        return {
+            name: CdfTables(
+                cdf=data[f"{name}.cdf"],
+                cdf_length=data[f"{name}.cdf_length"],
+                cdf_offset=data[f"{name}.cdf_offset"],
+                offset=data[f"{name}.offset"],
+                precision=int(data[f"{name}.precision"]),
+            )
+            for name in names
+        }
 
 
 def uniform_noise(y: torch.Tensor, generator: Optional[torch.Generator]):

@@ -16,8 +16,9 @@ random rotation and weighs each example's distortion by its lambda.
 
 Coding: :class:`Codec` takes one image at a time and the quality per call
 (1-based); each image becomes a 3-field ``.tfci`` blob ``[string, xshape,
-[yh, yw, q]]``, byte-compatible with the JAX package's. Not ported yet:
-``make_codec``'s cache and the module-level ``compress``/``decompress``.
+[yh, yw, q]]``, byte-compatible with the JAX package's. The module-level
+:func:`compress` codes at the config's quality under its model name, and
+:func:`make_codec` keeps one codec per model and device.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from compression_tpu_torch.entropy_models import ContinuousBatchedEntropyModel
 from compression_tpu_torch.entropy_models.continuous_base import CdfTables, uniform_noise
 from compression_tpu_torch.layers.priors import DeepFactorizedPrior
 from compression_tpu_torch.models import bls2017, common
+from compression_tpu_torch.models.codec_cache import cached, tables_via_disk
 from compression_tpu_torch.models.codec_base import DeviceCodec
 from compression_tpu_torch.util import PackedTensors
 from compression_tpu_torch.util.image import pad_to_multiple_np
@@ -42,7 +44,10 @@ __all__ = [
     "B2018Model",
     "Codec",
     "LR_SCALES",
+    "compress",
+    "decompress",
     "load_model",
+    "make_codec",
     "make_loss_fn",
     "train",
 ]
@@ -203,16 +208,18 @@ class Codec(DeviceCodec):
       model: a :class:`B2018Model` (moved to ``device``).
       device: ``"cuda"`` (default; raises if absent) or ``"cpu"``.
       tables: optional ``CdfTables`` of the full prior, to use instead of
-        building them from the model.
+        the ``full`` tables of the table file registered for the model, or
+        built from it.
     """
 
     def __init__(self, model: B2018Model, device="cuda", tables=None):
         super().__init__(model, device)
         cfg = self.cfg
-        full = ContinuousBatchedEntropyModel(
-            model.get_prior(device="cpu"), coding_rank=cfg.coding_rank + 1,
-            compression=True, tables=tables)
-        self.tables = full.tables
+        if tables is None:
+            tables = tables_via_disk(lambda: {"full": ContinuousBatchedEntropyModel(
+                model.get_prior(device="cpu"),
+                coding_rank=cfg.coding_rank + 1).build_tables()}, model)["full"]
+        self.tables = tables
         self.ems = [
             ContinuousBatchedEntropyModel(
                 model.prior(device="cpu", index=q), coding_rank=cfg.coding_rank,
@@ -258,3 +265,21 @@ class Codec(DeviceCodec):
             with self.timer.stage("dec/synth"):
                 x_hat = self._synthesize(self._to_device(y_hat), q).cpu().numpy()
         return x_hat[0, : int(xshape[0]), : int(xshape[1]), :]
+
+
+def make_codec(model: B2018Model, device="cuda") -> Codec:
+    """The model's :class:`Codec` on ``device``, built once for the model,
+    its weights and the device
+    (:func:`~compression_tpu_torch.models.codec_cache.cached`)."""
+    return cached(model, lambda: Codec(model, device), device)
+
+
+def compress(model: B2018Model, image: np.ndarray, device="cuda") -> bytes:
+    """uint8 (H, W, 3) image -> 3-field .tfci blob at the config's quality,
+    under its model name."""
+    return make_codec(model, device).compress(
+        image, quality=model.config.quality, model_name=model.config.model_name)
+
+
+def decompress(model: B2018Model, data: bytes, device="cuda") -> np.ndarray:
+    return make_codec(model, device).decompress(data)

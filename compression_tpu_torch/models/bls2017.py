@@ -15,8 +15,10 @@ Training: ``model(x, generator, training)`` gives ``(x_hat, bits)``,
 Coding: :class:`Codec` takes one image at a time, as the JAX package's
 does; each becomes a 3-field ``.tfci`` blob ``[string, xshape, yshape]``,
 byte-compatible with the JAX package's. Layouts at the public boundary are
-the JAX package's: images HWC uint8, latents ``(N, h, w, C)``. Not ported
-yet: ``SpatialCodec``, the sharded transforms and ``make_codec``'s cache.
+the JAX package's: images HWC uint8, latents ``(N, h, w, C)``.
+:func:`make_codec` keeps one codec per model and device; as in the JAX
+package, its tables are built without the table disk cache. Not ported
+yet: ``SpatialCodec`` and the sharded transforms.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from compression_tpu_torch.layers import GDN, SignalConv2D
 from compression_tpu_torch.layers.priors import DeepFactorizedPrior
 from compression_tpu_torch.models import bmshj2018, common
 from compression_tpu_torch.models.codec_base import DeviceCodec
+from compression_tpu_torch.models.codec_cache import cached
 from compression_tpu_torch.util import PackedTensors
 from compression_tpu_torch.util.image import pad_to_multiple_np
 
@@ -40,7 +43,10 @@ __all__ = [
     "Config",
     "BLS2017Model",
     "Codec",
+    "compress",
+    "decompress",
     "load_model",
+    "make_codec",
     "make_loss_fn",
     "train",
 ]
@@ -241,3 +247,19 @@ class Codec(DeviceCodec):
             with self.timer.stage("dec/synth"):
                 x_hat = self._synthesize(self._to_device(y_hat)).cpu().numpy()
         return x_hat[0, : int(xshape[0]), : int(xshape[1]), :]
+
+
+def make_codec(model: BLS2017Model, device="cuda") -> Codec:
+    """The model's :class:`Codec` on ``device``, built once for the model,
+    its weights and the device
+    (:func:`~compression_tpu_torch.models.codec_cache.cached`)."""
+    return cached(model, lambda: Codec(model, device), device)
+
+
+def compress(model: BLS2017Model, image: np.ndarray, device="cuda") -> bytes:
+    """uint8 (H, W, 3) image -> 3-field .tfci blob."""
+    return make_codec(model, device).compress(image)
+
+
+def decompress(model: BLS2017Model, data: bytes, device="cuda") -> np.ndarray:
+    return make_codec(model, device).decompress(data)

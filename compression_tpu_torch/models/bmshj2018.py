@@ -22,8 +22,10 @@ the hyper-synthesis runs on the whole batch; the codec runs it one image at
 a time for the bitstream's sake.
 
 Layouts at the public boundary are the JAX package's: images NHWC uint8,
-latents ``(N, h, w, C)``. Not ported yet: ``decompress_batch_jit``,
-``SpatialCodec``, the sharded transforms, and the table disk cache.
+latents ``(N, h, w, C)``. :func:`make_codec` keeps one codec per model
+and device; the codec reads its tables through the table disk cache
+(:mod:`compression_tpu_torch.models.codec_cache`). Not ported yet:
+``decompress_batch_jit``, ``SpatialCodec`` and the sharded transforms.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -44,6 +47,7 @@ from compression_tpu_torch.layers import GDN, SignalConv2D
 from compression_tpu_torch.layers.priors import DeepFactorizedPrior
 from compression_tpu_torch.models import common
 from compression_tpu_torch.models.codec_base import HyperpriorCodec
+from compression_tpu_torch.models.codec_cache import cached
 from compression_tpu_torch.models.device_coding import StreamOverflow
 from compression_tpu_torch.ops.math_ops import lower_bound
 from compression_tpu_torch.parallel.pipeline import Work
@@ -52,7 +56,10 @@ __all__ = [
     "Config",
     "BMSHJ2018Model",
     "Codec",
+    "compress",
+    "decompress",
     "load_model",
+    "make_codec",
     "make_loss_fn",
     "train",
 ]
@@ -300,3 +307,21 @@ class Codec(HyperpriorCodec):
             # bmshj2018 does (its mean-scale codecs raise instead).
             return self._finish_encode(
                 self._host_coder_work(w.sym, w.z_sym, w.rows, w.hw))
+
+
+def make_codec(model: BMSHJ2018Model, device="cuda") -> Codec:
+    """The model's :class:`Codec` on ``device``, built once for the model,
+    its weights and the device
+    (:func:`~compression_tpu_torch.models.codec_cache.cached`)."""
+    return cached(model, lambda: Codec(model, device), device)
+
+
+def compress(model: BMSHJ2018Model, image: np.ndarray, coder: str = "host",
+             device="cuda") -> bytes:
+    """uint8 (H, W, 3) image -> .tfci blob, from the host range coder
+    (``"host"``) or the card's rANS (``"device"``)."""
+    return make_codec(model, device).compress(image, coder)
+
+
+def decompress(model: BMSHJ2018Model, data: bytes, device="cuda") -> np.ndarray:
+    return make_codec(model, device).decompress(data)

@@ -32,6 +32,7 @@ from compression_tpu_torch.entropy_models import (
     LocationScaleIndexedEntropyModel,
 )
 from compression_tpu_torch.models import device_coding
+from compression_tpu_torch.models.codec_cache import tables_via_disk
 from compression_tpu_torch.models.device_coding import is_device_coded, parse_host_blobs
 from compression_tpu_torch.parallel.pipeline import Pipeline, Work, stream_context
 from compression_tpu_torch.util import PackedTensors
@@ -116,19 +117,26 @@ class HyperpriorCodec(DeviceCodec):
         ``hyperprior`` and ``synthesize``.
       device: ``"cuda"`` (default; raises if absent) or ``"cpu"``.
       tables: optional ``{"side": CdfTables, "main": CdfTables}`` to use
-        instead of building them from the model.
+        instead of the ones from the table file registered for the model
+        (:func:`~compression_tpu_torch.models.codec_cache.tables_via_disk`),
+        or built from it.
     """
 
     def __init__(self, model: torch.nn.Module, device="cuda", tables=None):
         super().__init__(model, device)
-        tables = tables or {}
+        hyperprior = model.hyperprior(device="cpu")
+        if tables is None:
+            tables = tables_via_disk(lambda: {
+                "side": ContinuousBatchedEntropyModel(
+                    hyperprior, coding_rank=3).build_tables(),
+                "main": LocationScaleIndexedEntropyModel(
+                    NoisyNormal, coding_rank=3, compression=True).tables,
+            }, model)
         self.side_em = ContinuousBatchedEntropyModel(
-            model.hyperprior(device="cpu"), coding_rank=3, compression=True,
-            tables=tables.get("side"),
+            hyperprior, coding_rank=3, compression=True, tables=tables["side"],
         )
         self.em = LocationScaleIndexedEntropyModel(
-            NoisyNormal, coding_rank=3, compression=True,
-            tables=tables.get("main"),
+            NoisyNormal, coding_rank=3, compression=True, tables=tables["main"],
         )
         self._z_off = self.side_em.symbol_offset(self.device)
 

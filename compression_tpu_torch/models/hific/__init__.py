@@ -2,11 +2,10 @@
 counterpart of ``compression_tpu/models/hific/``. archs (ChannelNorm, the
 Encoder and Generator, the spectral-norm Discriminator), model (the G-side
 model, the G and D losses with the rate hinge, the joint G/D step, the
-codec with both coders), configs (hific-lo/mi/hi), lpips, train.
+codec with both coders and the module-level ``make_codec`` / ``compress``
+/ ``decompress``), configs (hific-lo/mi/hi), lpips, train.
 
-Not ported yet: the module-level ``make_codec`` / ``compress`` /
-``decompress`` (they sit on the table cache), ``SpatialCodec`` and the
-sharded functions.
+Not ported yet: ``SpatialCodec`` and the sharded functions.
 """
 
 from compression_tpu_torch.models.hific.archs import (
@@ -19,7 +18,10 @@ from compression_tpu_torch.models.hific.configs import CONFIGS, HificConfig, get
 from compression_tpu_torch.models.hific.model import (
     Codec,
     HificModel,
+    compress,
+    decompress,
     load_model,
+    make_codec,
     make_loss_fns,
     make_train_steps,
 )
@@ -35,7 +37,10 @@ __all__ = [
     "get_config",
     "HificModel",
     "Codec",
+    "compress",
+    "decompress",
     "load_model",
+    "make_codec",
     "make_loss_fns",
     "make_train_steps",
     "train",

@@ -3,7 +3,8 @@
 
 The weights are read from the flax msgpack file that
 ``tools/convert_lpips.py`` writes (``{"params": {"vgg": {"conv{b}_{c}":
-{kernel, bias}}, "lin{i}": (C,)}}``), named by ``TPC_LPIPS_WEIGHTS``.
+{kernel, bias}}, "lin{i}": (C,)}}``), named by ``TPC_LPIPS_WEIGHTS`` or
+found as ``lpips_vgg16.msgpack`` in the model directory.
 Without a file the features are random, as in the JAX package: a seeded
 draw of flax's ``nn.Conv`` init (``lecun_normal`` kernels, zero biases)
 and heads at ``1 / C``; the fallback is reported on stderr.
@@ -38,9 +39,16 @@ _STD = (0.229, 0.224, 0.225)
 
 
 def lpips_params_path() -> Optional[str]:
-    """The converted weights named by ``TPC_LPIPS_WEIGHTS``, or None."""
+    """The converted weights named by ``TPC_LPIPS_WEIGHTS``, else
+    ``lpips_vgg16.msgpack`` in the model directory
+    (:func:`compression_tpu_torch.cli.registry.model_dir`), or None."""
     path = os.environ.get("TPC_LPIPS_WEIGHTS")
-    return path if path and os.path.exists(path) else None
+    if path and os.path.exists(path):
+        return path
+    from compression_tpu_torch.cli.registry import model_dir
+
+    fallback = os.path.join(model_dir(), "lpips_vgg16.msgpack")
+    return fallback if os.path.exists(fallback) else None
 
 
 class _VGG16Features(nn.Module):
@@ -94,7 +102,7 @@ class LPIPS(nn.Module):
 
 def make_lpips() -> LPIPS:
     """An :class:`LPIPS` with the converted weights where
-    ``TPC_LPIPS_WEIGHTS`` names a file, else random features drawn from
+    :func:`lpips_params_path` finds a file, else random features drawn from
     seed 7 (reported on stderr); its parameters need no gradient."""
     from compression_tpu_torch.convert import load_flax_msgpack, params_from_numpy
 
@@ -104,7 +112,8 @@ def make_lpips() -> LPIPS:
         model.load_state_dict(params_from_numpy(load_flax_msgpack(path)))
     else:
         print("[compression_tpu_torch.hific] WARNING: no converted LPIPS weights "
-              "found (TPC_LPIPS_WEIGHTS); using randomly initialized VGG features "
+              "found (TPC_LPIPS_WEIGHTS, or lpips_vgg16.msgpack in the model "
+              "directory); using randomly initialized VGG features "
               "(smoke mode). Run tools/convert_lpips.py for evaluation parity.",
               file=sys.stderr)
     return model.requires_grad_(False)

@@ -19,10 +19,8 @@ noisy z that the side model returns, the generator reads y rounded around
 mu, and the interior rate draws a third noise of its own. The noise comes
 from one generator, drawn in the order z, y, interior.
 
-Not ported yet: ``SpatialCodec`` and the sharded functions, the
-data-parallel step (``num_devices > 1`` raises), and the module-level
-``make_codec`` / ``compress`` / ``decompress`` (they sit on the table
-cache).
+Not ported yet: ``SpatialCodec`` and the sharded functions, and the
+data-parallel step (``num_devices > 1`` raises).
 """
 
 from __future__ import annotations
@@ -30,6 +28,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -40,11 +39,13 @@ from compression_tpu_torch.entropy_models import (
 )
 from compression_tpu_torch.layers.priors import DeepFactorizedPrior
 from compression_tpu_torch.models import mbt2018
+from compression_tpu_torch.models.codec_cache import cached
 from compression_tpu_torch.models.hific import archs
 from compression_tpu_torch.models.hific.configs import HificConfig
 from compression_tpu_torch.ops.math_ops import clip
 
-__all__ = ["HificModel", "make_loss_fns", "make_train_steps", "Codec", "load_model"]
+__all__ = ["HificModel", "make_loss_fns", "make_train_steps", "Codec", "load_model",
+           "make_codec", "compress", "decompress"]
 
 # range_coder_precision of both product coders: no coded symbol costs more.
 _CODER_PRECISION = 12.0
@@ -293,3 +294,21 @@ class Codec(mbt2018.Codec):
       tables: optional ``{"side": CdfTables, "main": CdfTables}`` to use
         instead of building them from the model.
     """
+
+
+def make_codec(model: HificModel, device="cuda") -> Codec:
+    """The model's :class:`Codec` on ``device``, built once for the model,
+    its weights and the device
+    (:func:`~compression_tpu_torch.models.codec_cache.cached`)."""
+    return cached(model, lambda: Codec(model, device), device)
+
+
+def compress(model: HificModel, image: np.ndarray, coder: str = "host",
+             device="cuda") -> bytes:
+    """uint8 (H, W, 3) image -> .tfci blob, from the host range coder
+    (``"host"``) or the card's rANS (``"device"``)."""
+    return make_codec(model, device).compress(image, coder)
+
+
+def decompress(model: HificModel, data: bytes, device="cuda") -> np.ndarray:
+    return make_codec(model, device).decompress(data)

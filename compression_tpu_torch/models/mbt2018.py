@@ -30,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -43,13 +44,17 @@ from compression_tpu_torch.layers import SignalConv2D
 from compression_tpu_torch.layers.priors import DeepFactorizedPrior
 from compression_tpu_torch.models import bmshj2018, common
 from compression_tpu_torch.models.codec_base import HyperpriorCodec
+from compression_tpu_torch.models.codec_cache import cached
 from compression_tpu_torch.ops.math_ops import lower_bound
 
 __all__ = [
     "Config",
     "MBT2018Model",
     "Codec",
+    "compress",
+    "decompress",
     "load_model",
+    "make_codec",
     "make_loss_fn",
     "train",
 ]
@@ -210,3 +215,21 @@ class Codec(HyperpriorCodec):
         mus, sigmas = zip(*(self.model.params_from_zhat(z_hat[i : i + 1])
                             for i in range(z_hat.shape[0])))
         return torch.cat(mus), self.em.rows(torch.cat(sigmas))
+
+
+def make_codec(model: MBT2018Model, device="cuda") -> Codec:
+    """The model's :class:`Codec` on ``device``, built once for the model,
+    its weights and the device
+    (:func:`~compression_tpu_torch.models.codec_cache.cached`)."""
+    return cached(model, lambda: Codec(model, device), device)
+
+
+def compress(model: MBT2018Model, image: np.ndarray, coder: str = "host",
+             device="cuda") -> bytes:
+    """uint8 (H, W, 3) image -> .tfci blob, from the host range coder
+    (``"host"``) or the card's rANS (``"device"``)."""
+    return make_codec(model, device).compress(image, coder)
+
+
+def decompress(model: MBT2018Model, data: bytes, device="cuda") -> np.ndarray:
+    return make_codec(model, device).decompress(data)

@@ -24,7 +24,7 @@ Coding: :class:`Codec`, with the batch API of
   with no host sync); ``num_slices + 4`` fields with ``[K]`` last.
 
 Both formats are byte-compatible with the JAX package's. Not ported yet:
-``SpatialCodec``, the sharded functions and ``make_codec``'s cache.
+``SpatialCodec`` and the sharded functions.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ from compression_tpu_torch.layers import SignalConv2D
 from compression_tpu_torch.layers.priors import DeepFactorizedPrior
 from compression_tpu_torch.models import bmshj2018, common, device_coding
 from compression_tpu_torch.models.codec_base import HyperpriorCodec
+from compression_tpu_torch.models.codec_cache import cached
 from compression_tpu_torch.models.device_coding import (
     is_device_coded,
     pad_words,
@@ -62,7 +63,10 @@ __all__ = [
     "Config",
     "MS2020Model",
     "Codec",
+    "compress",
+    "decompress",
     "load_model",
+    "make_codec",
     "make_loss_fn",
     "train",
 ]
@@ -446,3 +450,21 @@ class Codec(HyperpriorCodec):
         on worker threads: while the host range-decodes one batch's slice,
         the device computes another batch's slice parameters."""
         yield from staggered_map(self.decompress_batch, blob_batches, depth)
+
+
+def make_codec(model: MS2020Model, device="cuda") -> Codec:
+    """The model's :class:`Codec` on ``device``, built once for the model,
+    its weights and the device
+    (:func:`~compression_tpu_torch.models.codec_cache.cached`)."""
+    return cached(model, lambda: Codec(model, device), device)
+
+
+def compress(model: MS2020Model, image: np.ndarray, coder: str = "host",
+             device="cuda") -> bytes:
+    """uint8 (H, W, 3) image -> .tfci blob, from the host range coder
+    (``"host"``) or the card's rANS (``"device"``)."""
+    return make_codec(model, device).compress(image, coder)
+
+
+def decompress(model: MS2020Model, data: bytes, device="cuda") -> np.ndarray:
+    return make_codec(model, device).decompress(data)

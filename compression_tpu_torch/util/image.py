@@ -1,11 +1,22 @@
 """Image IO and quality metrics (counterpart of
-``compression_tpu/util/image.py``): PNG IO through PIL (imported only when
-called), host padding, and PSNR, SSIM and MS-SSIM as plain torch functions
-on NHWC float tensors, differentiable, so the MS-SSIM loss trains on the
-card. A NumPy PSNR serves the host side."""
+``compression_tpu/util/image.py``): a PNG codec of its own (``zlib`` and
+``struct``: the card's machine has no PIL), host padding, and PSNR, SSIM
+and MS-SSIM as plain torch functions on NHWC float tensors,
+differentiable, so the MS-SSIM loss trains on the card. A NumPy PSNR
+serves the host side.
+
+PNG: the writer emits 8-bit RGB with filter 0. The reader takes 8-bit,
+non-interlaced files of colour types 0, 2, 3, 4 and 6 with any of the five
+row filters, and converts them to RGB as PIL's ``convert("RGB")`` does
+(gray replicated, alpha dropped, palette looked up). Anything else (16-bit
+or interlaced PNG, another format) goes through PIL where it can be
+imported, and raises where it cannot.
+"""
 
 from __future__ import annotations
 
+import struct
+import zlib
 from typing import Tuple
 
 import numpy as np
@@ -23,18 +34,138 @@ __all__ = [
 ]
 
 
-def read_png(path) -> np.ndarray:
-    """Reads an image file to uint8 (H, W, 3)."""
-    from PIL import Image
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
 
-    img = Image.open(path).convert("RGB")
-    return np.asarray(img, np.uint8)
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
 def write_png(path, image: np.ndarray) -> None:
-    from PIL import Image
+    """Writes a uint8 (H, W, 3) image as an 8-bit RGB PNG, filter 0."""
+    image = np.asarray(image, np.uint8)
+    if image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"write_png takes (H, W, 3) uint8, got {image.shape}")
+    h, w, _ = image.shape
+    rows = np.zeros((h, 1 + 3 * w), np.uint8)  # each row's filter byte is 0
+    rows[:, 1:] = image.reshape(h, 3 * w)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE + _png_chunk(b"IHDR", header)
+                + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + _png_chunk(b"IEND", b""))
 
-    Image.fromarray(np.asarray(image, np.uint8)).save(path)
+
+def _png_chunks(data: bytes):
+    pos = len(_PNG_SIGNATURE)
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos : pos + 4])
+        kind = data[pos + 4 : pos + 8]
+        body = data[pos + 8 : pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length : pos + 12 + length])
+        if len(body) != length or zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"corrupt PNG chunk {kind!r}")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + length
+    raise ValueError("truncated PNG: no IEND chunk")
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undoes the PNG row filters (None, Sub, Up, Average, Paeth)."""
+    raw = raw.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for r in range(h):
+        kind, line = raw[r, 0], raw[r, 1:]
+        if kind == 0:
+            cur = line
+        elif kind == 1:  # Sub: a running sum mod 256 along each sample
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:
+            cur = line + prev
+        elif kind in (3, 4):  # each byte needs the one decoded bpp before it
+            cur = bytearray(line.tobytes())
+            up = prev.tolist()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[i] = (cur[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"PNG row {r} has an unknown filter {kind}")
+        out[r] = prev = cur
+    return out
+
+
+def _png_header(data: bytes):
+    """A PNG's (width, height, bit depth, colour type, interlace), or None
+    for a file that is not a PNG."""
+    if not data.startswith(_PNG_SIGNATURE):
+        return None
+    kind, body = next(_png_chunks(data))
+    if kind != b"IHDR" or len(body) != 13:
+        raise ValueError("PNG does not start with IHDR")
+    w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", body)
+    return w, h, depth, ctype, interlace
+
+
+def _decode_png(data: bytes, w: int, h: int, ctype: int) -> np.ndarray:
+    """An 8-bit non-interlaced PNG of colour type ``ctype`` -> uint8
+    (H, W, 3)."""
+    chunks = list(_png_chunks(data))
+    ch = _PNG_CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(
+        b"".join(body for kind, body in chunks if kind == b"IDAT")), np.uint8)
+    if raw.size != h * (w * ch + 1):
+        raise ValueError(f"PNG image data holds {raw.size} bytes, expected "
+                         f"{h * (w * ch + 1)}")
+    px = _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
+    if ctype == 3:
+        palette = next((body for kind, body in chunks if kind == b"PLTE"), None)
+        if palette is None:
+            raise ValueError("palette PNG without a PLTE chunk")
+        lut = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(palette, np.uint8).reshape(-1, 3)
+        lut[: len(entries)] = entries
+        return lut[px[..., 0]]
+    if ch <= 2:  # gray, gray + alpha
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def read_png(path) -> np.ndarray:
+    """Reads an image file to uint8 (H, W, 3). 8-bit non-interlaced PNGs
+    are decoded here; other files go through PIL, if it is installed."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header = _png_header(data)
+    if header is None:
+        unsupported = "not a PNG file"
+    else:
+        w, h, depth, ctype, interlace = header
+        if depth == 8 and not interlace and ctype in _PNG_CHANNELS:
+            return _decode_png(data, w, h, ctype)
+        unsupported = (f"bit depth {depth}, colour type {ctype}, "
+                       f"{'interlaced' if interlace else 'non-interlaced'}")
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"{path}: {unsupported}; this reader takes 8-bit non-interlaced "
+            "PNG (colour types 0, 2, 3, 4, 6), and PIL, which would read the "
+            "rest, is not installed") from None
+    with Image.open(path) as img:
+        return np.asarray(img.convert("RGB"), np.uint8)
 
 
 def pad_to_multiple_np(

@@ -322,3 +322,5 @@ def test_port_never_imports_jax_or_the_jax_package():
     for module in ("bls2017", "mbt2018", "b2018", "ms2020", "codec_base", "device_coding"):
         assert f"compression_tpu_torch/models/{module}.py" in names
     assert "compression_tpu_torch/parallel/charm_pipeline.py" in names
+    for module in ("cli/tfci", "cli/registry", "models/codec_cache"):
+        assert f"compression_tpu_torch/{module}.py" in names

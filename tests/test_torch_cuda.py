@@ -2,7 +2,8 @@
 any width up to 192, K3/K2 rANS encode/decode) against their plain twins, K1
 under autograd, the codecs on the card (bmshj2018 with either coder,
 bls2017 in both archs, mbt2018 with either coder, b2018 at 192 filters,
-ms2020 and HiFiC at full width with either coder), and training steps
+ms2020 and HiFiC at full width with either coder), the tfci CLI against
+the Codec API, and training steps
 (HiFiC's joint G/D step among them), against the CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
 without JAX run it alone, without the suite's conftest:
 
@@ -818,3 +819,36 @@ def test_hific_joint_step_on_card_matches_cpu(cuda, monkeypatch):
     cpu = np.array([rel(t_cpu[n], t_ref[n]) for n in grads])
     assert card.max() <= 3 * cpu.max(), (card.max(), cpu.max())
     assert np.median(card) <= 3 * np.median(cpu), (np.median(card), np.median(cpu))
+
+
+@pytest.mark.parametrize("coder", ["host", "device"])
+def test_cli_round_trip_on_card_equals_the_codec_api(cuda, coder, tmp_path, monkeypatch):
+    """`tfci compress` / `tfci decompress` on the card (the trained
+    checkpoint in a model directory under its registry name) write the
+    bytes and the image the Codec API gives on the same table file."""
+    import shutil
+
+    from compression_tpu_torch.cli.tfci import main
+    from compression_tpu_torch.entropy_models.continuous_base import load_tables
+    from compression_tpu_torch.util import image as image_util
+
+    models = tmp_path / "models"
+    models.mkdir()
+    ckpt = models / "bmshj2018-hyperprior.msgpack"
+    shutil.copy(CKPT, ckpt)
+    monkeypatch.setenv("TPC_MODEL_DIR", str(models))
+    monkeypatch.delenv("TPC_TINY_MODELS", raising=False)
+    monkeypatch.delenv("TPC_TABLE_CACHE_FILE", raising=False)
+    yy, xx = np.mgrid[0:128, 0:192].astype(np.float32)
+    image = np.stack([xx / 192 * 255, yy / 128 * 255, (xx + yy) % 64 * 4], -1).astype(np.uint8)
+    png, tfci, out = (str(tmp_path / n) for n in ("in.png", "a.tfci", "out.png"))
+    image_util.write_png(png, image)
+    flags = ["--device-coder"] if coder == "device" else []
+    assert main(["compress", "bmshj2018-hyperprior", png, tfci, *flags]) == 0
+    assert main(["decompress", tfci, out]) == 0
+    st = ckpt.stat()
+    tables = load_tables(f"{ckpt}.{st.st_mtime_ns}.{st.st_size}.tables.npz")
+    codec = bmshj2018.Codec(bmshj2018.load_model(CKPT), device=cuda, tables=tables)
+    blob = codec.compress(image, coder)
+    assert open(tfci, "rb").read() == blob
+    np.testing.assert_array_equal(image_util.read_png(out), codec.decompress(blob))
