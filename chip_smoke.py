@@ -1,7 +1,7 @@
 """On-card smoke run of the PyTorch/CUDA port: bmshj2018 at full width, with
 the host coder and with the device (rANS) coder, its training, the other
 families at full width (bls2017, bmshj2018-factorized, mbt2018-mean, b2018,
-ms2020-cc10, HiFiC), and the tfci CLI.
+ms2020-cc10, HiFiC), the tfci CLI, and the rest of the library.
 
     python3 chip_smoke.py [--batches N] [--reps N]
 
@@ -169,10 +169,45 @@ of a checkout. Phases, each fatal on failure:
     (``--rd_parameter 2``) trained 3 steps, then compressed and
     decompressed with each coder the family has, and hific-lo at full width
     with ``--allow-random``, both coders; no verb, here or in the other
-    processes, imports PIL.
+    processes, imports PIL;
+15. the rest of the library at the full width of ckpt/bmshj2018.msgpack on
+    the 8 structured 768x512 images, each step's ms printed beside the card:
+    a. y (8x48x32x192) from the analysis (K1 3, counted over exactly that
+       call) coded by a UniversalIndexedEntropyModel (NoisyNormal, 64 scales
+       x 15 noise levels = 960 rows) with the scale indexes of the
+       hyper-synthesis; its training call with expected gradients on the
+       card against the CPU on the same noise (bits 1e-5, the y-gradient
+       1e-4 of its largest entry); compress and decompress: |y_hat - y| <=
+       1/2, the eval path within 1e-5 of the codec's grid, strings
+       byte-identical to the CPU port's;
+    b. z (8x12x8x128) through a UniversalBatchedEntropyModel over the
+       checkpoint's hyperprior: a round trip within 1/2, dither offsets that
+       differ across channels, strings byte-identical to the CPU port's (its
+       decoded z feeds 15a's hyper-synthesis);
+    c. the power-law model on y: decompress gives exactly round(y), the
+       penalty within 1e-5 of the CPU's (float32 sums), strings equal;
+    d. ContinuousBatchedEntropyModel at 192 channels over a
+       NoisySoftRoundedDeepFactorized, a 3-component NoisyLogisticMixture and
+       the same mixture without analytic tails (the log-CDF root-find): the
+       priors on the card, tables equal to the CPU port's, offset and tails
+       found on the card within 1e-5 of the CPU's, the rate of round(y) on
+       two images within 1e-5, the training call and its backward finite;
+    e. five SignalConv variants at 192 channels forward and backward in
+       strict fp32 against the CPU (1e-5 of each tensor's largest entry): a
+       5x5 stride-2 same_reflect down-conv, a channel-separable 5x5 up-conv
+       (zero-stuffed, the JAX package's lhs_dilation route), an RDFT 5x5
+       conv, SignalConv1D and SignalConv3D;
+    f. the plain torch CDF quantizer in float64 on the card over 15a's 960
+       PMF rows against the C++ quantizer row for row (a differing row is
+       printed and must be explained by a float64 tie within 4 ulps), exact
+       on the CPU; its time beside the C++ one;
+    g. the toy sources at their defaults: rd_point_ntc (banana, 3000 steps,
+       65,536 samples in one stream) and rd_point_ecvq (256 codewords, 200
+       steps): rate, distortion and wall time.
 
 Then one JSON line with every kernel's numbers (and its launches on every
-path), the training numbers and the families' numbers, the card line, and
+path), the training numbers, the families' numbers and the library's
+(phase 15), the card line, and
 the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -2403,6 +2438,433 @@ def cli_overhead(name: str, ckpt, png: str, out_png: str, image: np.ndarray) -> 
     return out
 
 
+# -- phase 15: the rest of the library at full width ----------------------------
+
+LIB_LEVELS = 15     # noise levels of the universal models (the JAX default)
+LIB_ALPHA = 5.0     # soft-round adapter's alpha (the JAX default)
+LIB_MIXTURE = 3     # components of the logistic mixture
+LIB_TOL = 1e-5      # card against CPU, of each tensor's largest entry (15d, 15e)
+LIB_GRAD_TOL = 1e-4  # the universal rate's y-gradient, card against CPU (15a)
+TIE_ULPS = 4        # CDF twin: a row may differ only at a float64 tie this close
+
+
+@contextlib.contextmanager
+def pinned_universal_noise(noise: torch.Tensor):
+    """The universal models' training noise taken from ``noise`` (a CPU
+    tensor), moved to each draw's device: the card and the CPU see the same
+    U(-1/2, 1/2) draw."""
+    from compression_tpu_torch.entropy_models import universal
+
+    saved = universal.uniform_noise
+    universal.uniform_noise = lambda t, generator: noise.to(t.device, t.dtype)
+    try:
+        yield
+    finally:
+        universal.uniform_noise = saved
+
+
+def rel_max_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (CPU tensors)."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def timed(label: str, card: str, steps: dict, fn, warm: bool = False):
+    """Runs ``fn`` once (after one untimed call with ``warm``: the first
+    call of a kernel pays its lazy load), syncing around it; logs and
+    records its wall ms."""
+    if warm:
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    steps[label] = 1e3 * (time.perf_counter() - t0)
+    log(f"  15{label}: {steps[label]:.1f} ms ({card})")
+    return out
+
+
+def greedy_ties(pmf: np.ndarray, length: int, precision: int) -> list:
+    """Replays the C++ quantizer's greedy repair of one row in host float64
+    and returns, for each step, ``(best, best_gain, runner_up, its_gain)``
+    (gains for increments, losses for decrements): where the device's log
+    may break a tie the other way."""
+    total = 1 << precision
+    p = np.where((pmf[:length] > 0) & np.isfinite(pmf[:length]), pmf[:length], 0.0)
+    if p.sum() <= 0:
+        p = np.ones(length)
+    s = 0.0
+    for v in p:  # left to right, as the C++ loop sums
+        s += v
+    x = p / s * total
+    q = np.maximum(1, np.floor(x) + (x - np.floor(x) >= 0.5)).astype(np.int64)
+    steps = []
+    while q.sum() != total:
+        inc = q.sum() < total
+        with np.errstate(divide="ignore"):
+            score = (p * np.log((q + 1.0) / q) if inc
+                     else np.where(q > 1, -p * np.log(q / np.maximum(q - 1.0, 1e-300)), -np.inf))
+        order = np.argsort(-score, kind="stable")
+        steps.append((int(order[0]), float(score[order[0]]),
+                      int(order[1]) if length > 1 else -1,
+                      float(score[order[1]]) if length > 1 else -np.inf))
+        q[order[0]] += 1 if inc else -1
+    return steps
+
+
+def initial_sums(pmf: np.ndarray, lengths: np.ndarray, precision: int) -> np.ndarray:
+    """Each row's sum before the repair: sum of max(1, llround(p / sum(p) *
+    2**precision)) over its entries."""
+    valid = np.arange(pmf.shape[1])[None, :] < lengths[:, None]
+    p = np.where(valid & np.isfinite(pmf) & (pmf > 0), pmf, 0.0)
+    s = p.sum(1, keepdims=True)
+    p = np.where(s > 0, p, valid.astype(np.float64))
+    x = p / p.sum(1, keepdims=True) * (1 << precision)
+    q = np.maximum(1, np.floor(x) + (x - np.floor(x) >= 0.5))
+    return np.where(valid, q, 0).sum(1)
+
+
+def check_cdf_twin(pmf: np.ndarray, lengths: np.ndarray, cdf: np.ndarray, precision: int,
+                   card: str, steps: dict) -> dict:
+    """15f: the plain torch quantizer on the card in float64 over the rows
+    the table build gave the C++ quantizer, row for row against it; exact on
+    the CPU. A row that differs on the card must be explained by a float64
+    tie: two entries the repair chose between with gains within TIE_ULPS
+    ulps, one of them an entry where the rows differ."""
+    from compression_tpu_torch.codec import pmf_to_quantized_cdf, pmf_to_quantized_cdf_torch
+
+    pmf_t, len_t = torch.from_numpy(pmf), torch.from_numpy(lengths)
+    cpu = pmf_to_quantized_cdf_torch(pmf_t, len_t, precision).numpy()
+    if not np.array_equal(cpu, cdf):
+        raise AssertionError("15f: the CDF twin on the CPU differs from the C++ quantizer in "
+                             f"{int((cpu != cdf).any(1).sum())} rows")
+    on_card = pmf_t.to(DEVICE), len_t.to(DEVICE)
+    got = timed("f CDF twin on the card", card, steps,
+                lambda: pmf_to_quantized_cdf_torch(*on_card, precision)).cpu().numpy()
+    reps = 5
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pmf_to_quantized_cdf_torch(*on_card, precision)
+    sync()
+    twin_ms = 1e3 * (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pmf_to_quantized_cdf(pmf, lengths, precision)
+    cpp_ms = 1e3 * (time.perf_counter() - t0) / reps
+    ties = []
+    for r in np.flatnonzero((got != cdf).any(1)):
+        n = int(lengths[r])
+        differ = set(np.flatnonzero(np.diff(got[r, : n + 1]) != np.diff(cdf[r, : n + 1])))
+        near = [(a, ga, b, gb) for a, ga, b, gb in greedy_ties(pmf[r], n, precision)
+                if abs(ga - gb) <= TIE_ULPS * np.spacing(abs(ga)) and {a, b} & differ]
+        log(f"  15f row {r}: the card's row differs from the C++ one at entries "
+            f"{sorted(differ)}; float64 ties within {TIE_ULPS} ulps there: {near[:3]}")
+        if not near:
+            raise AssertionError(f"15f: row {r} differs with no float64 tie to explain it")
+        ties.append(int(r))
+    # Each repair step moves a row's sum by one unit.
+    max_steps = int(np.abs((1 << precision) - initial_sums(pmf, lengths, precision)).max())
+    log(f"  15f CDF twin over {len(lengths)} rows of up to {pmf.shape[1]} entries: card "
+        f"{twin_ms:.2f} ms a call (float64, {max_steps} repair steps at most), C++ on the "
+        f"host {cpp_ms:.2f} ms; rows equal to the C++ quantizer: "
+        f"{len(lengths) - len(ties)} of {len(lengths)} ({len(ties)} explained by ties); "
+        f"exact on the CPU ({card})")
+    return dict(rows=int(len(lengths)), max_len=int(pmf.shape[1]), ms=twin_ms, cpp_ms=cpp_ms,
+                repair_steps=max_steps, tie_rows=len(ties), cpu_exact=True)
+
+
+def spy_pmf(build):
+    """Runs a table build and returns its tables and the float64 PMF rows,
+    lengths and precision it handed the C++ quantizer."""
+    from compression_tpu_torch.entropy_models import continuous_base
+
+    seen = {}
+    real = continuous_base.codec.pmf_to_quantized_cdf
+
+    def spy(pmf, lengths, precision):
+        seen.update(pmf=np.array(pmf), lengths=np.array(lengths), precision=precision)
+        return real(pmf, lengths, precision)
+
+    continuous_base.codec.pmf_to_quantized_cdf = spy
+    try:
+        tables = build()
+    finally:
+        continuous_base.codec.pmf_to_quantized_cdf = real
+    return tables, seen
+
+
+def library_universal(model, x, card: str, steps: dict) -> dict:
+    """15a and 15b: y and z of the checkpoint coded by the universal models."""
+    from compression_tpu_torch.distributions import NoisyNormal
+    from compression_tpu_torch.entropy_models import (
+        UniversalBatchedEntropyModel,
+        UniversalIndexedEntropyModel,
+        inverse_log_scale_fn,
+        log_scale_fn,
+    )
+
+    with torch.no_grad():
+        model.analysis(x)  # warm: cuDNN and K1 load on first use
+        reset_launches()
+        y = timed("a analysis (K1 x3)", card, steps, lambda: model.analysis(x))
+        launches = read_launches()
+    if launches != launches_of(gdn=3):
+        raise AssertionError(f"15a: the analysis launched {launches}, expected K1 3")
+    with torch.no_grad():
+        z = model.hyper_analysis(y)
+    # 15b: z over the checkpoint's hyperprior, dithered per channel.
+    em_z = timed("b tables (128 channels)", card, steps, lambda: UniversalBatchedEntropyModel(
+        model.hyperprior(), coding_rank=3, num_noise_levels=LIB_LEVELS, compression=True))
+    offsets = np.unique(em_z.tables.offset)
+    if len(offsets) < 2:
+        raise AssertionError("15b: the dither offsets do not differ across channels")
+    z_strings = timed("b compress z", card, steps, lambda: em_z.compress(z), warm=True)
+    z_hat = timed("b decompress z", card, steps,
+                  lambda: em_z.decompress(z_strings, tuple(z.shape[1:3])), warm=True)
+    z_err = float(np.abs(z_hat - z.cpu().numpy()).max())
+    if z_err > 0.5 + 1e-6 or em_z.compress(z.cpu()) != z_strings:
+        raise AssertionError(f"15b: |z_hat - z| {z_err} or strings differ from the CPU's")
+    z_eval = em_z(z, training=False)[0].detach().cpu().numpy()
+    if float(np.abs(z_eval - z_hat).max()) > 1e-5:
+        raise AssertionError("15b: the eval path is not the codec's grid")
+    z_bytes = sum(map(len, z_strings))
+    log(f"  15b universal batched on z {tuple(z.shape)}: {len(offsets)} distinct dither "
+        f"offsets over 128 channels, |z_hat - z| <= {z_err:.4f}, {z_bytes} bytes, eval path "
+        "== codec grid, strings byte-identical to the CPU port's")
+
+    # 15a: y against 64 scales x 15 noise levels = 960 rows.
+    with torch.no_grad():
+        sigma = model.hyper_synthesis(torch.from_numpy(z_hat).to(DEVICE))
+        indexes = inverse_log_scale_fn(sigma)
+    em_y, spied = spy_pmf(lambda: timed(
+        "a tables (960 rows)", card, steps, lambda: UniversalIndexedEntropyModel(
+            lambda loc, scale: NoisyNormal(loc, scale), (64,),
+            {"loc": torch.zeros_like, "scale": log_scale_fn}, coding_rank=3,
+            num_noise_levels=LIB_LEVELS, compression=True)))
+    if em_y.tables.num_cdfs != 960:
+        raise AssertionError(f"15a: {em_y.tables.num_cdfs} table rows, expected 960")
+    noise = torch.rand(y.shape, generator=torch.Generator().manual_seed(15)) - 0.5
+    out = {}
+    for device in (DEVICE, "cpu"):
+        yd = y.detach().to(device).requires_grad_()
+        with pinned_universal_noise(noise):
+            _, bits = timed(f"a training call ({device})", card, steps,
+                            lambda: em_y(yd, indexes.to(device), training=True),
+                            warm=True)
+            timed(f"a backward ({device})", card, steps, lambda: bits.sum().backward())
+        out[device] = bits.detach().cpu(), yd.grad.cpu()
+    bits_err = rel_max_err(out[DEVICE][0], out["cpu"][0])
+    grad_err = rel_max_err(out[DEVICE][1], out["cpu"][1])
+    if not (torch.isfinite(out[DEVICE][1]).all() and bits_err <= LIB_TOL
+            and grad_err <= LIB_GRAD_TOL):
+        raise AssertionError(f"15a: bits {bits_err:.2e} / y-gradient {grad_err:.2e} from the CPU's")
+    strings = timed("a compress y", card, steps, lambda: em_y.compress(y, indexes), warm=True)
+    y_hat = timed("a decompress y", card, steps, lambda: em_y.decompress(strings, indexes),
+                  warm=True)
+    y_err = float(np.abs(y_hat - y.cpu().numpy()).max())
+    y_eval = em_y(y, indexes, training=False)[0].detach().cpu().numpy()
+    eval_err = float(np.abs(y_eval - y_hat).max())
+    same = em_y.compress(y.cpu(), indexes.cpu()) == strings
+    if y_err > 0.5 + 1e-6 or eval_err > 1e-5 or not same:
+        raise AssertionError(f"15a: |y_hat - y| {y_err}, eval vs codec {eval_err}, "
+                             f"strings equal to the CPU's {same}")
+    y_bytes = sum(map(len, strings))
+    bpp = 8 * (y_bytes + z_bytes) / (x.shape[0] * HEIGHT * WIDTH)
+    log(f"  15a universal indexed on y {tuple(y.shape)}: 960 rows, K1 launches {launches}; "
+        f"training call (expected gradients) bits {bits_err:.2e} and y-gradient "
+        f"{grad_err:.2e} from the CPU's (of their largest entry); |y_hat - y| <= {y_err:.4f}, "
+        f"eval path within {eval_err:.1e} of the codec grid, strings byte-identical to the "
+        f"CPU port's; {y_bytes} + {z_bytes} bytes, {bpp:.4f} bpp")
+    return dict(y=y, launches=launches, spied=spied, tables=em_y.tables,
+                universal_indexed=dict(rows=960, bits_rel_err=bits_err, grad_rel_err=grad_err,
+                                       max_err=y_err, eval_err=eval_err, bytes=y_bytes, bpp=bpp),
+                universal_batched=dict(channels=128, offsets=int(len(offsets)), max_err=z_err,
+                                       bytes=z_bytes))
+
+
+def library_power_law(y, card: str, steps: dict) -> dict:
+    """15c: the power-law model on y."""
+    from compression_tpu_torch.entropy_models import PowerLawEntropyModel
+
+    em = PowerLawEntropyModel(coding_rank=3)
+    penalty = timed("c penalty", card, steps, lambda: em.penalty(y), warm=True)
+    err = rel_max_err(penalty, em.penalty(y.cpu()))
+    strings = timed("c compress", card, steps, lambda: em.compress(y))
+    back = timed("c decompress", card, steps, lambda: em.decompress(strings, tuple(y.shape)))
+    if not np.array_equal(back, np.round(y.cpu().numpy())) or err > LIB_TOL:
+        raise AssertionError(f"15c: decompress is not round(y), or the penalty is {err:.2e} "
+                             "from the CPU's")
+    if em.compress(y.cpu()) != strings:
+        raise AssertionError("15c: strings differ from the CPU port's")
+    nbytes = sum(map(len, strings))
+    log(f"  15c power law on y: penalty {float(penalty.sum()):.1f} bits ({err:.1e} from the "
+        f"CPU's, float32 sums), {nbytes} bytes of run-length gamma, decompress == round(y)")
+    return dict(penalty_bits=float(penalty.sum()), penalty_rel_err=err, bytes=nbytes)
+
+
+def library_priors(y, card: str, steps: dict) -> dict:
+    """15d: a soft-rounded DeepFactorized prior and a logistic mixture at
+    192 channels; and a mixture without analytic tails (the log-CDF
+    root-find)."""
+    import dataclasses as dc
+
+    from compression_tpu_torch.distributions import (
+        MixtureSameFamily,
+        NoisyLogisticMixture,
+        NoisySoftRoundedDeepFactorized,
+        UniformNoiseAdapter,
+        helpers,
+    )
+    from compression_tpu_torch.distributions.base import map_tensors
+    from compression_tpu_torch.distributions.scalar import Logistic
+    from compression_tpu_torch.entropy_models import ContinuousBatchedEntropyModel
+
+    @dc.dataclass(frozen=True)
+    class NoTails(MixtureSameFamily):
+        def _lower_tail(self, tail_mass):
+            return None
+
+        def _upper_tail(self, tail_mass):
+            return None
+
+    rng = np.random.RandomState(15)
+    mix = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.randn(192, LIB_MIXTURE), rng.randn(192, LIB_MIXTURE) * 2,
+        np.exp(rng.uniform(-1, 1, (192, LIB_MIXTURE))))]
+    priors = {
+        "soft-rounded DeepFactorized": NoisySoftRoundedDeepFactorized(
+            alpha=LIB_ALPHA, generator=torch.Generator().manual_seed(15), batch_shape=(192,)),
+        "logistic mixture": NoisyLogisticMixture(*mix),
+        "mixture, log-CDF tails": UniformNoiseAdapter(NoTails(mix[0], Logistic(mix[1], mix[2]))),
+    }
+    out = {}
+    yr = torch.round(y)
+    for name, prior_cpu in priors.items():
+        prior = map_tensors(lambda t: t.to(DEVICE), prior_cpu)
+        em = ContinuousBatchedEntropyModel(prior, coding_rank=3)
+        tables = timed(f"d tables, {name}", card, steps, em.build_tables)
+        want = ContinuousBatchedEntropyModel(prior_cpu, coding_rank=3).build_tables()
+        if not all(np.array_equal(getattr(tables, k), getattr(want, k))
+                   for k in ("cdf", "cdf_length", "cdf_offset", "offset")):
+            raise AssertionError(f"15d {name}: tables differ from the CPU port's")
+        grid = {}
+        for key, fn in (("offset", lambda p: helpers.quantization_offset(p)),
+                        ("lower", lambda p: helpers.lower_tail(p, em.tail_mass)),
+                        ("upper", lambda p: helpers.upper_tail(p, em.tail_mass))):
+            with torch.no_grad():
+                got = timed(f"d {key} on the card, {name}", card, steps, lambda: fn(prior))
+                grid[key] = rel_max_err(got, fn(prior_cpu))
+        yd = yr.detach().to(DEVICE).requires_grad_()
+        bits = timed(f"d training call, {name}", card, steps,
+                     lambda: em(yd, torch.Generator(device=DEVICE).manual_seed(0))[1])
+        bits.sum().backward()
+        with torch.no_grad():  # two images against the CPU
+            rate = em._bits(em._log2_prob(prior, yr[:2]), 4)
+            rate_err = rel_max_err(rate, em._bits(em._log2_prob(prior_cpu, yr[:2].cpu()), 4))
+        if not (torch.isfinite(bits).all() and torch.isfinite(yd.grad).all()) \
+                or rate_err > LIB_TOL or max(grid.values()) > LIB_TOL:
+            raise AssertionError(f"15d {name}: rate {rate_err:.2e}, grid {grid}, or a "
+                                 "non-finite training call")
+        log(f"  15d {name} at 192 channels: tables ({tables.num_cdfs} rows, up to "
+            f"{int(tables.cdf_length.max())} entries) equal to the CPU port's; offset and tails "
+            "on the card " + ", ".join(f"{k} {v:.1e}" for k, v in grid.items())
+            + f" from the CPU's; rate of round(y) {rate_err:.1e} from the CPU's; training "
+            "call and its backward finite")
+        out[name] = dict(rows=int(tables.num_cdfs), rate_rel_err=rate_err, **{
+            f"{k}_rel_err": v for k, v in grid.items()})
+    return out
+
+
+def library_signal_conv(card: str, steps: dict) -> dict:
+    """15e: the five SignalConv variants at 192 channels, forward and
+    backward in strict fp32, card against CPU."""
+    from compression_tpu_torch.layers import SignalConv1D, SignalConv2D, SignalConv3D
+
+    cases = {
+        "5x5 stride-2 same_reflect down-conv": (SignalConv2D(
+            192, 192, 5, corr=True, strides_down=2, padding="same_reflect", use_bias=True),
+            (2, 32, 32, 192)),
+        "channel-separable 5x5 up-conv": (SignalConv2D(
+            192, 1, 5, corr=False, strides_up=2, padding="same_zeros",
+            channel_separable=True, use_bias=True), (2, 16, 16, 192)),
+        "rdft 5x5 stride-2 conv": (SignalConv2D(
+            192, 192, 5, corr=True, strides_down=2, padding="same_zeros",
+            kernel_param="rdft"), (2, 32, 32, 192)),
+        "SignalConv1D 5 stride-2 same_reflect": (SignalConv1D(
+            192, 192, 5, corr=True, strides_down=2, padding="same_reflect"), (2, 256, 192)),
+        "SignalConv3D 3x3x3 up-conv": (SignalConv3D(
+            192, 192, 3, corr=False, strides_up=2, padding="same_zeros"), (1, 4, 8, 8, 192)),
+    }
+    out = {}
+    gen = torch.Generator().manual_seed(15)
+    for name, (mod, shape) in cases.items():
+        x = torch.randn(shape, generator=gen)
+        results = {}
+        for device in (DEVICE, "cpu"):
+            m = mod.to(device)
+            m.zero_grad(set_to_none=True)
+            xd = x.to(device).requires_grad_()
+            yd = timed(f"e {name} forward ({device})", card, steps, lambda: m(xd), warm=True)
+            timed(f"e {name} backward ({device})", card, steps,
+                  lambda: (yd * yd).sum().backward())
+            results[device] = [yd.detach().cpu(), xd.grad.cpu()] + [
+                p.grad.cpu() for p in m.parameters()]
+        errs = [rel_max_err(g, w) for g, w in zip(results[DEVICE], results["cpu"])]
+        if max(errs) > LIB_TOL:
+            raise AssertionError(f"15e {name}: {errs} from the CPU (of each tensor's largest "
+                                 f"entry), above {LIB_TOL}")
+        log(f"  15e {name}, x {shape}: output {errs[0]:.1e}, dx {errs[1]:.1e}, "
+            "parameter gradients " + ", ".join(f"{e:.1e}" for e in errs[2:])
+            + " from the CPU's (of each one's largest entry)")
+        out[name] = max(errs)
+    return out
+
+
+def library_toy(card: str, steps: dict) -> dict:
+    """15g: the toy-source rate-distortion points at their defaults."""
+    from compression_tpu_torch.models import toy_sources as toy
+
+    t0 = time.perf_counter()
+    rate, dist = toy.rd_point_ntc(toy.Config(), toy.banana, device=DEVICE)
+    ntc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vq_rate, vq_dist = toy.rd_point_ecvq(toy.banana, toy.Config().lmbda, device=DEVICE)
+    vq_s = time.perf_counter() - t0
+    steps["g rd_point_ntc"], steps["g rd_point_ecvq"] = 1e3 * ntc_s, 1e3 * vq_s
+    if not all(np.isfinite(v) and v > 0 for v in (rate, dist, vq_rate, vq_dist)):
+        raise AssertionError(f"15g: rate/distortion {rate, dist, vq_rate, vq_dist}")
+    log(f"  15g toy sources, banana, lambda 1: NTC (3000 steps, 65,536 samples in one "
+        f"stream) {rate:.4f} bits/sample, MSE {dist:.4f}, {ntc_s:.1f} s; ECVQ (256 codewords, "
+        f"200 steps) {vq_rate:.4f} bits/sample, MSE {vq_dist:.4f}, {vq_s:.2f} s ({card})")
+    return dict(ntc=dict(rate=rate, mse=dist, s=ntc_s), ecvq=dict(rate=vq_rate, mse=vq_dist, s=vq_s))
+
+
+def phase_library(card: str) -> dict:
+    """Phase 15: the library's entropy models, priors, convolutions, CDF
+    twin and toy sources, at the full width of ckpt/bmshj2018.msgpack on the
+    8 structured 768x512 images."""
+    log(f"library (phase 15; {card}):")
+    t_phase = time.perf_counter()
+    steps = {}
+    model = ckpt_model().to(DEVICE).eval()
+    x = torch.from_numpy(structured_images()).to(DEVICE).to(torch.float32) / 255.0
+    uni = library_universal(model, x, card, steps)
+    power = library_power_law(uni["y"], card, steps)
+    priors = library_priors(uni["y"], card, steps)
+    convs = library_signal_conv(card, steps)
+    spied = uni["spied"]
+    twin = check_cdf_twin(spied["pmf"], spied["lengths"], uni["tables"].cdf,
+                          spied["precision"], card, steps)
+    toy = library_toy(card, steps)
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 15 took {seconds:.1f} s ({card})")
+    return dict(launches=uni["launches"], steps_ms=steps,
+                universal_indexed=uni["universal_indexed"],
+                universal_batched=uni["universal_batched"], power_law=power, priors=priors,
+                signal_conv_rel_err=convs, cdf_twin=twin, toy=toy, seconds=seconds)
+
+
 def timed_ms(fn) -> float:
     sync()
     t0 = time.perf_counter()
@@ -2460,6 +2922,7 @@ def main() -> int:
     ms = phase_ms2020(card, args.reps, args.batches)
     hi = phase_hific(card, args.reps, args.batches)
     cli = phase_cli(card)
+    library = phase_library(card)
 
     # Each kernel's launches on every path, each path counted on its own.
     paths = {
@@ -2483,6 +2946,7 @@ def main() -> int:
         **{f"tfci {name} {verb} (TPC_TINY_MODELS=1)" if name != "hific-lo"
            else f"tfci {name} {verb} (--allow-random)": counts
            for name, verbs in cli["families"].items() for verb, counts in verbs.items()},
+        "library (phase 15a): bmshj2018 analysis of the 8 images": library["launches"],
     }
 
     kernels = [{
@@ -2546,8 +3010,9 @@ def main() -> int:
                                     "overhead_ms", "psnr",
                                     "bpp", "eval_mean", "loss_first5", "loss_last5",
                                     "seconds")}
+    library_line = {k: v for k, v in library.items() if k != "launches"}
     print(json.dumps({"kernels": kernels, "training": train_line, "families": families,
-                      "cli": cli_line}))
+                      "cli": cli_line, "library": library_line}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,11 +8,17 @@ from compression_tpu_torch.codec.host import (
     entropy_decode,
     entropy_encode,
     pmf_to_quantized_cdf,
+    run_length_gamma_decode,
+    run_length_gamma_encode,
 )
+from compression_tpu_torch.codec.xla_cdf import pmf_to_quantized_cdf_torch
 
 __all__ = [
     "encode_capacity",
     "entropy_encode",
     "entropy_decode",
     "pmf_to_quantized_cdf",
+    "pmf_to_quantized_cdf_torch",
+    "run_length_gamma_encode",
+    "run_length_gamma_decode",
 ]

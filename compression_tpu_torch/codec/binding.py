@@ -89,6 +89,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         _f64p, ctypes.c_int64, ctypes.c_int64, _i32p, ctypes.c_int32, _i32p,
         ctypes.c_int32,
     ]
+    lib.tpc_run_length_gamma_encode.restype = ctypes.c_int
+    lib.tpc_run_length_gamma_encode.argtypes = [
+        _i32p, ctypes.c_int64, _u8p, ctypes.c_int64, _i64p,
+    ]
+    lib.tpc_run_length_gamma_decode.restype = ctypes.c_int
+    lib.tpc_run_length_gamma_decode.argtypes = [
+        _u8p, ctypes.c_int64, ctypes.c_int64, _i32p,
+    ]
 
 
 def _ptr(arr: np.ndarray, ctype):

@@ -7,7 +7,7 @@ with one multi-threaded native call per batch.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -18,6 +18,8 @@ __all__ = [
     "entropy_encode",
     "entropy_decode",
     "pmf_to_quantized_cdf",
+    "run_length_gamma_encode",
+    "run_length_gamma_decode",
 ]
 
 
@@ -150,3 +152,34 @@ def pmf_to_quantized_cdf(
     )
     binding._check(rc)
     return cdf
+
+
+def run_length_gamma_encode(values: np.ndarray) -> bytes:
+    """Run-length + Elias-gamma code of a sparse int32 array (flattened),
+    the power-law entropy model's coder."""
+    lib = binding.get_lib()
+    values = np.ascontiguousarray(values, np.int32).ravel()
+    cap = 16 * values.size + 64
+    out = np.empty((cap,), np.uint8)
+    out_len = np.zeros((1,), np.int64)
+    rc = lib.tpc_run_length_gamma_encode(
+        binding._ptr(values, binding._i32p), values.size,
+        binding._ptr(out, binding._u8p), cap,
+        binding._ptr(out_len, binding._i64p),
+    )
+    binding._check(rc)
+    return out[: out_len[0]].tobytes()
+
+
+def run_length_gamma_decode(data: bytes, shape: Tuple[int, ...]) -> np.ndarray:
+    """Inverse of :func:`run_length_gamma_encode`: int32 values of ``shape``."""
+    lib = binding.get_lib()
+    n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    buf = np.frombuffer(data, np.uint8)
+    values = np.zeros((n,), np.int32)
+    rc = lib.tpc_run_length_gamma_decode(
+        binding._ptr(buf, binding._u8p), buf.size, n,
+        binding._ptr(values, binding._i32p),
+    )
+    binding._check(rc)
+    return values.reshape(shape)

@@ -12,13 +12,17 @@ in both directions.
   suffix of it) onto a model's state dict. Each holder is recognised by its
   structure, not its name, at any depth: a dict with a ``deep_factorized``
   child is a prior (``prior``, ``hyperprior``); a dict of ``kernel`` /
-  ``bias`` / ``beta`` / ``gamma`` leaves is a layer (``analysis.conv0``,
+  ``kernel_rdft`` / ``bias`` / ``beta`` / ``gamma`` leaves is a layer
+  (``analysis.conv0``, a toy source's ``analysis.dense0``,
   HiFiC's ``generator.res0.norm0``, the discriminator's top-level
   ``conv0``, LPIPS's ``vgg.conv0_0``); any other dict holds further
   holders (``analysis``, ``generator``, ``generator.res0``); a bare array
-  is a parameter of its own (b2018's ``gain``, LPIPS's ``lin0``). Conv
-  kernels ``(kh, kw, cin, cout)``, of ``SignalConv2D`` and flax ``nn.Conv``
-  alike, become OIHW ``(cout, cin, kh, kw)``; GDN ``beta``/``gamma`` stay
+  is a parameter of its own (b2018's ``gain``, LPIPS's ``lin0``). Kernels
+  ``(*support, cin, cout)`` become ``(cout, cin, *support)``: conv kernels
+  of ``SignalConv1D/2D/3D`` and flax ``nn.Conv`` (OIHW in 2-D) and flax
+  ``Dense`` kernels ``(in, out)`` (``nn.Linear``'s ``(out, in)``); RDFT
+  coefficients ``kernel_rdft`` keep their layout as ``weight_rdft``; GDN
+  ``beta``/``gamma`` stay
   raw (sqrt space, reparameterized at call time), as do ChannelNorm's
   vectors; the DeepFactorized ``matrices`` / ``biases`` / ``factors`` lists
   map as they are. :func:`params_to_numpy` is its inverse, the flax param
@@ -183,15 +187,22 @@ def load_flax_msgpack(path) -> Dict[str, Any]:
 
 
 def kernel_to_torch(kernel: np.ndarray) -> torch.Tensor:
-    """``(kh, kw, cin, cout)`` -> OIHW ``(cout, cin, kh, kw)`` float32."""
+    """A flax kernel ``(*support, cin, cout)`` -> torch's ``(cout, cin,
+    *support)`` float32: OIHW from ``(kh, kw, cin, cout)``, a 1-D or 3-D
+    conv's likewise, and a ``Dense`` kernel ``(in, out)`` -> ``nn.Linear``'s
+    ``(out, in)``."""
     k = np.asarray(kernel, np.float32)
-    return torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+    nd = k.ndim
+    return torch.from_numpy(np.ascontiguousarray(
+        k.transpose(nd - 1, nd - 2, *range(nd - 2))))
 
 
 def kernel_from_torch(weight: torch.Tensor) -> np.ndarray:
-    """OIHW ``(cout, cin, kh, kw)`` -> ``(kh, kw, cin, cout)`` float32."""
+    """Inverse of :func:`kernel_to_torch`: ``(cout, cin, *support)`` ->
+    ``(*support, cin, cout)`` float32."""
     w = weight.detach().to("cpu", torch.float32).numpy()
-    return np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+    nd = w.ndim
+    return np.ascontiguousarray(w.transpose(*range(2, nd), 1, 0))
 
 
 def _as_list(value):
@@ -202,7 +213,11 @@ def _as_list(value):
 
 
 _PRIOR_FIELDS = ("matrices", "biases", "factors")  # DeepFactorized lists
-_LAYER_LEAVES = ("kernel", "bias", "beta", "gamma")
+_LAYER_LEAVES = ("kernel", "bias", "beta", "gamma", "kernel_rdft")
+# A leaf's name in the port where it differs from the JAX package's: kernels
+# are transposed into torch's layout; RDFT coefficients keep the JAX layout.
+_TORCH_LEAF = {"kernel": "weight", "kernel_rdft": "weight_rdft"}
+_FLAX_LEAF = {v: k for k, v in _TORCH_LEAF.items()}
 
 
 def _is_prior_key(parts) -> bool:
@@ -238,7 +253,7 @@ def _holder_to_state(key: str, node, state: Dict[str, torch.Tensor]) -> None:
             if leaf == "kernel":
                 state[f"{key}.weight"] = kernel_to_torch(value)
             else:
-                state[f"{key}.{leaf}"] = _array(value)
+                state[f"{key}.{_TORCH_LEAF.get(leaf, leaf)}"] = _array(value)
     elif node:
         for name, child in node.items():
             _holder_to_state(f"{key}.{name}", child, state)
@@ -271,14 +286,14 @@ def params_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             name, field, i = parts
             prior = tree.setdefault(name, {}).setdefault("deep_factorized", {})
             prior.setdefault(field, {})[i] = _numpy(value)
-        elif parts[-1] in ("weight",) + _LAYER_LEAVES[1:]:
+        elif parts[-1] in _FLAX_LEAF or parts[-1] in _LAYER_LEAVES:
             node = tree
             for part in parts[:-1]:
                 node = node.setdefault(part, {})
             if parts[-1] == "weight":
                 node["kernel"] = kernel_from_torch(value)
             else:
-                node[parts[-1]] = _numpy(value)
+                node[_FLAX_LEAF.get(parts[-1], parts[-1])] = _numpy(value)
         else:
             raise KeyError(f"unexpected parameter {key}")
     return tree
@@ -331,6 +346,5 @@ def flax_key_path(name: str) -> str:
     if _is_prior_key(parts):
         holder, field, i = parts
         return f"params/{holder}/deep_factorized/{_PRIOR_FIELDS.index(field)}/{i}"
-    if parts[-1] == "weight":
-        parts[-1] = "kernel"
+    parts[-1] = _FLAX_LEAF.get(parts[-1], parts[-1])
     return "params/" + "/".join(parts)

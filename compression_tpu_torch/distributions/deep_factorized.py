@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +42,36 @@ class DeepFactorized(Distribution):
     matrices: Tuple[torch.Tensor, ...]
     biases: Tuple[torch.Tensor, ...]
     factors: Tuple[torch.Tensor, ...]
+
+    @classmethod
+    def create(cls, generator: Optional[torch.Generator] = None,
+               batch_shape: Tuple[int, ...] = (),
+               num_filters: Sequence[int] = (3, 3, 3),
+               init_scale: float = 10.0, dtype=torch.float32,
+               device=None) -> "DeepFactorized":
+        """Fresh parameters at the JAX package's init: constant matrices
+        ``log(expm1(1 / scale / d_out))`` with ``scale =
+        init_scale ** (1 / layers)``, zero factors, and biases U(-1/2, 1/2)
+        drawn layer by layer from ``generator`` (a fresh one seeded 0 if
+        none is given)."""
+        batch_shape = tuple(batch_shape)
+        filters = (1,) + tuple(num_filters) + (1,)
+        scale = init_scale ** (1.0 / (len(num_filters) + 1))
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        matrices, biases, factors = [], [], []
+        for i in range(len(num_filters) + 1):
+            init = math.log(math.expm1(1.0 / scale / filters[i + 1]))
+            matrices.append(torch.full(
+                batch_shape + (filters[i + 1], filters[i]), init, dtype=dtype))
+            biases.append(torch.rand(
+                batch_shape + (filters[i + 1], 1), generator=generator,
+                dtype=dtype) - 0.5)
+            if i < len(num_filters):
+                factors.append(torch.zeros(batch_shape + (filters[i + 1], 1),
+                                           dtype=dtype))
+        return cls(*(tuple(t.to(device) for t in f)
+                     for f in (matrices, biases, factors)))
 
     @property
     def batch_shape(self):
@@ -88,11 +118,21 @@ class DeepFactorized(Distribution):
                 du = du * (1.0 + gate * (1.0 - t * t))
         return u[..., 0, 0], du[..., 0, 0]
 
+    def cdf(self, x):
+        return torch.sigmoid(self._logits_cumulative(x))
+
     def log_cdf(self, x):
         return F.logsigmoid(self._logits_cumulative(x))
 
+    def survival_function(self, x):
+        return torch.sigmoid(-self._logits_cumulative(x))
+
     def log_survival_function(self, x):
         return F.logsigmoid(-self._logits_cumulative(x))
+
+    def _log_cdf_and_survival(self, x):
+        logits = self._logits_cumulative(x)
+        return F.logsigmoid(logits), F.logsigmoid(-logits)
 
     def log_prob(self, x):
         x = torch.as_tensor(x)

@@ -3,14 +3,20 @@
 
 ``estimate_tails`` is the same expanding-bracket bisection as the JAX
 package's, run in the same dtype (the parameters', float32 for the
-checkpoints), so both packages place the CDF tables' grids alike.
+checkpoints), so both packages place the CDF tables' grids alike. A
+distribution without analytic tails gets them from ``estimate_tails`` on
+its ``log_cdf`` / ``log_survival_function``, in the dtype of its first
+floating-point tensor, on that tensor's device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
+
+from compression_tpu_torch.distributions.base import tensors
 
 __all__ = ["estimate_tails", "quantization_offset", "lower_tail", "upper_tail"]
 
@@ -63,17 +69,35 @@ def quantization_offset(distribution):
 
 
 def lower_tail(distribution, tail_mass: float):
-    """Quantile at ``tail_mass / 2`` (the ported priors have analytic or
-    root-found tails; the JAX package's log-CDF fallback is not ported)."""
-    return _required(distribution._lower_tail(tail_mass), "_lower_tail")
+    """Quantile at ``tail_mass / 2``: analytic where the distribution has
+    it, else the root of ``log_cdf(x) = log(tail_mass / 2)``."""
+    t = distribution._lower_tail(tail_mass)
+    if t is not None:
+        return torch.as_tensor(t)
+    return estimate_tails(
+        distribution.log_cdf, math.log(tail_mass / 2.0),
+        distribution.batch_shape, *_tail_dtype_device(distribution))
 
 
 def upper_tail(distribution, tail_mass: float):
-    """Quantile at ``1 - tail_mass / 2``."""
-    return _required(distribution._upper_tail(tail_mass), "_upper_tail")
+    """Quantile at ``1 - tail_mass / 2``: analytic, else the root of
+    ``log_survival_function(x) = log(tail_mass / 2)``."""
+    t = distribution._upper_tail(tail_mass)
+    if t is not None:
+        return torch.as_tensor(t)
+    return estimate_tails(
+        distribution.log_survival_function, math.log(tail_mass / 2.0),
+        distribution.batch_shape, *_tail_dtype_device(distribution))
 
 
-def _required(value, name):
-    if value is None:
-        raise NotImplementedError(f"distribution has no {name}")
-    return value
+def _tail_dtype(distribution) -> torch.dtype:
+    """The dtype of the distribution's first floating-point tensor (float32
+    if it holds none): the root-find's dtype, as in the JAX package."""
+    return _tail_dtype_device(distribution)[0]
+
+
+def _tail_dtype_device(distribution):
+    for t in tensors(distribution):
+        if t.is_floating_point():
+            return t.dtype, t.device
+    return torch.float32, None

@@ -29,6 +29,7 @@ import torch
 
 from compression_tpu_torch.codec import host as codec
 from compression_tpu_torch.distributions import helpers
+from compression_tpu_torch.distributions.base import map_tensors
 from compression_tpu_torch.ops.round_ops import round_st
 
 __all__ = [
@@ -113,8 +114,9 @@ class ContinuousEntropyModelBase:
     """Shared table machinery of the continuous entropy models.
 
     Args:
-      prior: distribution whose batch shape is the per-element prior layout;
-        its tensors must live on the CPU (the table build is host work).
+      prior: distribution whose batch shape is the per-element prior layout
+        (the table build copies it to the CPU: host work, as in the JAX
+        package).
       coding_rank: trailing dims forming one coding unit (one bitstream).
       compression: build the range-coder tables now.
       tail_mass: probability mass allowed outside the tabulated range.
@@ -177,17 +179,31 @@ class ContinuousEntropyModelBase:
         trailing dims."""
         return -torch.sum(log2_p, dim=tuple(range(ndim - self.coding_rank, ndim)))
 
+    def _table_offsets(self, prior) -> np.ndarray:
+        """Fractional grid offsets per CDF row (the universal models
+        override this with their dither)."""
+        if not self.offset_heuristic:
+            return np.zeros(int(np.prod(prior.batch_shape)), np.float64)
+        return _host64(helpers.quantization_offset(prior))
+
     def build_tables(self, prior=None) -> CdfTables:
-        """Builds integer CDF tables from the prior (host CPU, float64)."""
+        """Builds integer CDF tables from the prior, on the host CPU in
+        float64 (a prior on the card is copied to the CPU first)."""
         prior = self.prior if prior is None else prior
         with torch.no_grad():
+            prior = map_tensors(lambda t: t.detach().cpu(), prior)
             return self._build_tables_impl(prior)
 
     def _build_tables_impl(self, prior) -> CdfTables:
+        offsets_overridden = (
+            type(self)._table_offsets
+            is not ContinuousEntropyModelBase._table_offsets
+        )
         grid_fn = getattr(prior, "_grid_points", None)
         pts = (
             grid_fn(self.tail_mass)
-            if grid_fn is not None and self.offset_heuristic else None
+            if grid_fn is not None and self.offset_heuristic
+            and not offsets_overridden else None
         )
         if pts is not None:
             # One root-find for offset and both tails (DeepFactorized).
@@ -195,11 +211,7 @@ class ContinuousEntropyModelBase:
             offset -= np.round(offset)
             lo, hi = _host64(pts[1]), _host64(pts[2])
         else:
-            offset = (
-                _host64(helpers.quantization_offset(prior))
-                if self.offset_heuristic
-                else np.zeros(int(np.prod(prior.batch_shape)), np.float64)
-            )
+            offset = self._table_offsets(prior)
             lo = _host64(helpers.lower_tail(prior, self.tail_mass))
             hi = _host64(helpers.upper_tail(prior, self.tail_mass))
 

@@ -7,7 +7,6 @@ materializes the distribution object on each call.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -34,28 +33,11 @@ class DeepFactorizedPrior(nn.Module):
                  init_scale: float = 10.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        batch_shape = tuple(batch_shape)
-        filters = (1,) + tuple(num_filters) + (1,)
-        scale = init_scale ** (1.0 / (len(num_filters) + 1))
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        self.matrices = nn.ParameterList()
-        self.biases = nn.ParameterList()
-        self.factors = nn.ParameterList()
-        for i in range(len(num_filters) + 1):
-            init = math.log(math.expm1(1.0 / scale / filters[i + 1]))
-            shape = batch_shape + (filters[i + 1], filters[i])
-            self.matrices.append(
-                nn.Parameter(torch.full(shape, init))
-            )
-            self.biases.append(nn.Parameter(
-                torch.rand(batch_shape + (filters[i + 1], 1),
-                           generator=generator) - 0.5
-            ))
-            if i < len(num_filters):
-                self.factors.append(nn.Parameter(
-                    torch.zeros(batch_shape + (filters[i + 1], 1))
-                ))
+        prior = DeepFactorized.create(generator, batch_shape, num_filters,
+                                      init_scale)
+        self.matrices = nn.ParameterList(prior.matrices)
+        self.biases = nn.ParameterList(prior.biases)
+        self.factors = nn.ParameterList(prior.factors)
 
     def forward(self, noisy: bool = True, device=None, index=None):
         """The distribution; with ``device``, over detached copies of the

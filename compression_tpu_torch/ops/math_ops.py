@@ -1,5 +1,6 @@
-"""Bound ops with configurable gradients (counterpart of
-``compression_tpu/ops/math_ops.py`` ``lower_bound`` / ``upper_bound``).
+"""Bound ops with configurable gradients and the expected-gradient
+perturbation (counterpart of ``compression_tpu/ops/math_ops.py``
+``lower_bound`` / ``upper_bound`` / ``perturb_and_apply``).
 
 Gradient modes (same semantics as the JAX package):
   * "identity_if_towards" (default): the gradient passes iff the input is
@@ -11,9 +12,11 @@ Gradient modes (same semantics as the JAX package):
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-__all__ = ["lower_bound", "upper_bound", "clip"]
+__all__ = ["lower_bound", "upper_bound", "clip", "perturb_and_apply"]
 
 _VALID_GRADIENTS = ("identity_if_towards", "disconnected", "identity")
 
@@ -83,3 +86,51 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     lo_t = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
     hi_t = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
+class _PerturbAndApply(torch.autograd.Function):
+    """``f(x + u, *args)``; backward: ``g * (f(x + 1/2) - f(x - 1/2))`` for
+    x, zero for u, and autograd of ``f(stopgrad(x + u), *args)`` for the
+    args (recomputed in the backward)."""
+
+    @staticmethod
+    def forward(ctx, f, x, u, *args):
+        ctx.f = f
+        ctx.save_for_backward(x, u, *args)
+        return f(x + u, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, u, *args = ctx.saved_tensors
+        f = ctx.f
+        dx = du = None
+        if ctx.needs_input_grad[1]:
+            dx = g * (f(x + 0.5, *args) - f(x - 0.5, *args))
+        if ctx.needs_input_grad[2]:
+            du = torch.zeros_like(u)
+        wanted = [i for i, a in enumerate(args) if ctx.needs_input_grad[3 + i]]
+        dargs = [None] * len(args)
+        if wanted:
+            with torch.enable_grad():
+                leaves = [a.detach().requires_grad_(i in wanted)
+                          for i, a in enumerate(args)]
+                y = f((x + u).detach(), *leaves)
+                grads = torch.autograd.grad(
+                    y, [leaves[i] for i in wanted], g, allow_unused=True)
+            for i, grad in zip(wanted, grads):
+                dargs[i] = grad
+        return (None, dx, du, *dargs)
+
+
+def perturb_and_apply(f: Callable, x: torch.Tensor, u: torch.Tensor, *args,
+                      expected_grads: bool = True) -> torch.Tensor:
+    """``f(x + u, *args)`` with the expectation-consistent gradient: with
+    ``expected_grads`` the gradient w.r.t. ``x`` is
+    ``f(x + 1/2) - f(x - 1/2)`` (the exact derivative of ``E_u[f(x + u)]``
+    for elementwise ``f`` and ``u ~ U(-1/2, 1/2)``), none flows to ``u``,
+    and the ``args`` (tensors passed in, not closed over, so that gradients
+    reach them) get the ordinary gradient of ``f``. ``u`` is an explicit
+    argument, as in the JAX package."""
+    if not expected_grads:
+        return f(x + u, *args)
+    return _PerturbAndApply.apply(f, x, u, *args)

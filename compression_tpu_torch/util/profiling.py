@@ -1,5 +1,13 @@
-"""Stage timing (counterpart of ``compression_tpu/util/profiling.py``
-``StageTimer``; the JAX version's ``trace``/``annotate`` are not ported yet).
+"""Tracing and stage timing (counterpart of
+``compression_tpu/util/profiling.py``).
+
+* ``trace(logdir)``: a ``torch.profiler`` trace of the host and, when a
+  card is present, its CUDA activity, written to ``logdir/trace.json``
+  (Chrome / Perfetto format).
+* ``annotate(name)``: a named region, ``torch.profiler.record_function``
+  plus an NVTX range when a card is present, so host stages show on the
+  timeline next to the device's work.
+* ``StageTimer``: wall time per named stage, with an aggregate report.
 
 Each stage is timed on the host clock. On a CUDA device it is also bracketed
 by two ``torch.cuda.Event``s on the current stream, so the device time of
@@ -10,6 +18,7 @@ the work the stage enqueued is known too; those events are read lazily, in
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
@@ -17,7 +26,35 @@ from typing import Dict, Iterator, List, Tuple
 
 import torch
 
-__all__ = ["StageTimer"]
+__all__ = ["trace", "annotate", "StageTimer"]
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator[torch.profiler.profile]:
+    """Profiles the block (CPU, and CUDA when available) and writes the
+    trace to ``logdir/trace.json``; yields the profiler."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """Named region on the profiler's timeline (and an NVTX range on the
+    card)."""
+    nvtx = torch.cuda.is_available()
+    with torch.profiler.record_function(name):
+        if nvtx:
+            torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            if nvtx:
+                torch.cuda.nvtx.range_pop()
 
 
 class StageTimer:

@@ -3,8 +3,11 @@ any width up to 192, K3/K2 rANS encode/decode) against their plain twins, K1
 under autograd, the codecs on the card (bmshj2018 with either coder,
 bls2017 in both archs, mbt2018 with either coder, b2018 at 192 filters,
 ms2020 and HiFiC at full width with either coder), the tfci CLI against
-the Codec API, and training steps
-(HiFiC's joint G/D step among them), against the CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
+the Codec API, training steps (HiFiC's joint G/D step among them), and the
+rest of the library (universal and power-law models, the soft-round and
+mixture priors and the log-CDF tails, SignalConv1D/3D with reflect,
+separable and RDFT kernels, the CDF quantizer on the card, the toy sources,
+tracing), against the CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
 without JAX run it alone, without the suite's conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -852,3 +855,204 @@ def test_cli_round_trip_on_card_equals_the_codec_api(cuda, coder, tmp_path, monk
     blob = codec.compress(image, coder)
     assert open(tfci, "rb").read() == blob
     np.testing.assert_array_equal(image_util.read_png(out), codec.decompress(blob))
+
+
+# -- the rest of the library (chip_smoke.py phase 15 at a small size) ---------
+
+
+def _rel(got, want):
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def test_universal_indexed_on_card_matches_cpu(cuda, monkeypatch):
+    from compression_tpu_torch.distributions import NoisyNormal
+    from compression_tpu_torch.entropy_models import universal
+
+    em = universal.UniversalIndexedEntropyModel(
+        lambda loc, scale: NoisyNormal(loc, scale), (64,),
+        {"loc": torch.zeros_like, "scale": continuous_indexed.log_scale_fn},
+        coding_rank=3, compression=True)
+    assert em.tables.num_cdfs == 960
+    gen = torch.Generator().manual_seed(0)
+    idx = torch.rand(2, 12, 8, 24, generator=gen) * 63
+    y = torch.randn(2, 12, 8, 24, generator=gen) * continuous_indexed.log_scale_fn(idx)
+    noise = torch.rand(y.shape, generator=gen) - 0.5
+    monkeypatch.setattr(universal, "uniform_noise", lambda t, g: noise.to(t.device, t.dtype))
+    out = []
+    for device in (cuda, "cpu"):
+        yd = y.to(device).detach().requires_grad_()
+        idd = idx.to(device).detach().requires_grad_()
+        _, bits = em(yd, idd, training=True)
+        bits.sum().backward()
+        out.append((bits, yd.grad, idd.grad))
+    for got, want in zip(*out):
+        assert _rel(got, want) <= 1e-4
+    strings = em.compress(y.to(cuda), idx.to(cuda))
+    assert strings == em.compress(y, idx)
+    y_hat = em.decompress(strings, idx.to(cuda))
+    assert np.abs(y_hat - y.numpy()).max() <= 0.5 + 1e-6
+    y_eval = em(y.to(cuda), idx.to(cuda), training=False)[0].cpu().numpy()
+    np.testing.assert_allclose(y_eval, y_hat, atol=1e-5)
+
+
+def test_universal_batched_on_card_round_trip(cuda):
+    from compression_tpu_torch.entropy_models import UniversalBatchedEntropyModel
+
+    model = bmshj2018.load_model(CKPT).to(cuda)
+    em = UniversalBatchedEntropyModel(model.hyperprior(), coding_rank=3, compression=True)
+    assert len(np.unique(em.tables.offset)) > 1
+    z = torch.randn(2, 6, 4, 128, generator=torch.Generator().manual_seed(1)) * 3
+    strings = em.compress(z.to(cuda))
+    assert strings == em.compress(z)
+    z_hat = em.decompress(strings, (6, 4))
+    assert np.abs(z_hat - z.numpy()).max() <= 0.5 + 1e-6
+    np.testing.assert_allclose(em(z.to(cuda), training=False)[0].detach().cpu().numpy(),
+                               z_hat, atol=1e-5)
+
+
+def test_power_law_on_card(cuda):
+    from compression_tpu_torch.entropy_models import PowerLawEntropyModel
+
+    em = PowerLawEntropyModel(coding_rank=3)
+    y = torch.randn(3, 8, 6, 32, generator=torch.Generator().manual_seed(2)) * 3
+    assert _rel(em.penalty(y.to(cuda)), em.penalty(y)) <= 1e-5
+    strings = em.compress(y.to(cuda))
+    assert strings == em.compress(y)
+    np.testing.assert_array_equal(em.decompress(strings, tuple(y.shape)), np.round(y.numpy()))
+
+
+def test_priors_on_card_match_cpu(cuda):
+    import dataclasses
+
+    from compression_tpu_torch.distributions import (
+        Logistic,
+        MixtureSameFamily,
+        NoisyLogisticMixture,
+        NoisySoftRoundedDeepFactorized,
+        UniformNoiseAdapter,
+        helpers,
+    )
+    from compression_tpu_torch.distributions.base import map_tensors
+
+    @dataclasses.dataclass(frozen=True)
+    class NoTails(MixtureSameFamily):
+        def _lower_tail(self, tail_mass):
+            return None
+
+        def _upper_tail(self, tail_mass):
+            return None
+
+    gen = torch.Generator().manual_seed(3)
+    logits, loc, scale = torch.randn(3, 192, 3, generator=gen)
+    scale = torch.exp(scale * 0.5)
+    priors = [
+        NoisySoftRoundedDeepFactorized(alpha=5.0, generator=gen, batch_shape=(192,)),
+        NoisyLogisticMixture(logits, loc * 2, scale),
+        UniformNoiseAdapter(NoTails(logits, Logistic(loc * 2, scale))),
+    ]
+    y = torch.round(torch.randn(2, 4, 6, 192, generator=gen) * 4)
+    for prior in priors:
+        card = map_tensors(lambda t: t.to(cuda), prior)
+        em = continuous_batched.ContinuousBatchedEntropyModel(card, coding_rank=3,
+                                                              compression=True)
+        want = continuous_batched.ContinuousBatchedEntropyModel(prior, coding_rank=3,
+                                                                compression=True).tables
+        np.testing.assert_array_equal(em.tables.cdf, want.cdf)
+        for fn in (helpers.quantization_offset,
+                   lambda p: helpers.lower_tail(p, em.tail_mass),
+                   lambda p: helpers.upper_tail(p, em.tail_mass)):
+            assert _rel(fn(card), fn(prior)) <= 1e-5
+        yd = y.to(cuda).detach().requires_grad_()
+        _, bits = em(yd, training=False)
+        bits.sum().backward()
+        assert torch.isfinite(yd.grad).all()
+        cpu = continuous_batched.ContinuousBatchedEntropyModel(prior, coding_rank=3)
+        assert _rel(bits, cpu(y, training=False)[1]) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["reflect_down", "separable_up", "rdft", "conv1d", "conv3d"])
+def test_signal_conv_variants_on_card_match_cpu(cuda, kind):
+    from compression_tpu_torch.layers import SignalConv1D, SignalConv2D, SignalConv3D
+
+    mod, shape = {
+        "reflect_down": (SignalConv2D(32, 48, 5, corr=True, strides_down=2,
+                                      padding="same_reflect", use_bias=True), (2, 17, 14, 32)),
+        "separable_up": (SignalConv2D(32, 2, 5, corr=False, strides_up=2, padding="same_zeros",
+                                      channel_separable=True), (2, 9, 7, 32)),
+        "rdft": (SignalConv2D(32, 48, 5, corr=True, strides_down=2, padding="same_zeros",
+                              kernel_param="rdft"), (2, 16, 16, 32)),
+        "conv1d": (SignalConv1D(32, 48, 5, corr=True, strides_down=2,
+                                padding="same_reflect"), (2, 50, 32)),
+        "conv3d": (SignalConv3D(32, 16, 3, corr=False, strides_up=2, padding="same_reflect"),
+                   (1, 3, 5, 4, 32)),
+    }[kind]
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(4))
+    out = []
+    for device in (cuda, "cpu"):
+        m = mod.to(device)
+        m.zero_grad(set_to_none=True)
+        xd = x.to(device).detach().requires_grad_()
+        y = m(xd)
+        (y * y).sum().backward()
+        out.append([y, xd.grad] + [p.grad for p in m.parameters()])
+    for got, want in zip(*out):
+        assert _rel(got, want) <= 1e-5
+
+
+def test_cdf_twin_on_card_matches_cpp(cuda):
+    from compression_tpu_torch.codec import pmf_to_quantized_cdf_torch
+
+    rng = np.random.RandomState(5)
+    lengths = rng.randint(2, 257, 200).astype(np.int32)
+    pmf = rng.dirichlet(np.ones(300) * 0.3, 200)
+    pmf[0] = 0.0
+    pmf[1, :5] = [np.inf, 1.0, 0.0, -1.0, np.nan]
+    for precision in (8, 12, 16):
+        want = pmf_to_quantized_cdf(pmf, lengths, precision)
+        got = pmf_to_quantized_cdf_torch(torch.from_numpy(pmf).to(cuda),
+                                         torch.from_numpy(lengths).to(cuda), precision)
+        assert got.device.type == cuda.type
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_rows_past_256_levels_on_card(cuda):
+    from compression_tpu_torch.distributions import NoisyNormal
+
+    sigma = torch.exp(torch.rand(2, 9, 7, generator=torch.Generator().manual_seed(6)) * 8 - 3)
+    for levels, dtype in ((64, torch.uint8), (300, torch.uint16), (70000, torch.int32)):
+        em = continuous_indexed.LocationScaleIndexedEntropyModel(NoisyNormal, num_scales=levels)
+        got = em.rows(sigma.to(cuda))
+        assert got.dtype == dtype and got.device.type == cuda.type
+        got, want = got.cpu().to(torch.int64).numpy(), em.rows(sigma).to(torch.int64).numpy()
+        # float32 log on the card and the CPU may differ by an ulp; at 70,000
+        # levels that moves an index lying within an ulp of a half level.
+        frac = em.inverse_scale_fn(sigma).numpy() % 1.0
+        at_half = np.abs(frac - 0.5) < 1e-2
+        assert np.all((got == want) | at_half) and np.abs(got - want).max() <= 1
+
+
+def test_toy_sources_on_card(cuda):
+    from compression_tpu_torch.models import toy_sources as toy
+
+    model, history = toy.train(toy.Config(hidden=16, layers=2), steps=20, batch_size=128,
+                               device=cuda)
+    assert history and all(np.isfinite(r) for _, r, _ in history)
+    x = toy.banana(torch.Generator(device=cuda).manual_seed(1), 64)
+    x_hat, strings = toy.compress_samples(model, x)
+    assert x_hat.device.type == cuda.type and len(strings) == 64
+    rate, dist = toy.rd_point_ecvq(toy.banana, 1.0, num_codewords=32, steps=5, eval_n=1024,
+                                   device=cuda)
+    assert rate > 0 and dist > 0
+
+
+def test_trace_and_annotate_on_card(cuda, tmp_path):
+    from compression_tpu_torch.util.profiling import annotate, trace
+
+    with trace(str(tmp_path)) as prof:
+        with annotate("library"):
+            (torch.randn(256, 256, device=cuda) @ torch.randn(256, 256, device=cuda)).sum()
+        torch.cuda.synchronize()
+    text = (tmp_path / "trace.json").read_text()
+    assert "library" in text
+    assert any(e.device_type.name == "CUDA" for e in prof.events())

@@ -76,6 +76,16 @@ def test_output_is_nhwc_contiguous():
 
 
 def test_reflect_padding_is_not_ported():
+    """same_reflect is ported (it matches the JAX package in
+    tests/test_torch_signal_conv_nd.py); a padding neither package has
+    still raises."""
+    x = torch.from_numpy(np.random.RandomState(3).randn(1, 4, 4, 2).astype(np.float32))
     mod = SignalConv2D(2, 2, 3, padding="same_reflect")
+    kernel = mod.weight.detach().numpy().transpose(2, 3, 1, 0)
+    want = JaxSignalConv2D(2, kernel_support=3, padding="same_reflect").apply(
+        {"params": {"kernel": jnp.asarray(kernel)}}, jnp.asarray(x.numpy()))
+    with torch.no_grad():
+        np.testing.assert_allclose(mod(x).numpy(), np.asarray(want), **TOL)
+    mod = SignalConv2D(2, 2, 3, padding="same_wrap")
     with pytest.raises(ValueError, match="padding"):
         mod(torch.zeros(1, 4, 4, 2))
