@@ -1,7 +1,8 @@
 """On-card smoke run of the PyTorch/CUDA port: bmshj2018 at full width, with
 the host coder and with the device (rANS) coder, its training, the other
 families at full width (bls2017, bmshj2018-factorized, mbt2018-mean, b2018,
-ms2020-cc10, HiFiC), the tfci CLI, and the rest of the library.
+ms2020-cc10, HiFiC), the tfci CLI, the rest of the library, the
+single-program decode and GDN at any width and dtype.
 
     python3 chip_smoke.py [--batches N] [--reps N]
 
@@ -10,8 +11,9 @@ of a checkout. Phases, each fatal on failure:
 
 1. environment: card name and power limit, torch/CUDA versions; float32
    math pinned (no TF32, deterministic cuDNN);
-2. build: the CUDA kernels gdn.cu and rans.cu (nvcc, one process each)
-   and the range coder (g++), all in parallel;
+2. build: the CUDA kernels gdn.cu (K1 and the general GDN kernel) and
+   rans.cu (nvcc, one process each) and the range coder (g++), all in
+   parallel;
 3. kernels: K1 (fused GDN, 3xTF32 on the tensor cores) against its plain
    twin at the six shapes the main path gives it (batch 8 of 768x512:
    384x256, 192x128 and 96x64 rows of C=192, forward and inverse) and on
@@ -203,12 +205,39 @@ of a checkout. Phases, each fatal on failure:
        on the CPU; its time beside the C++ one;
     g. the toy sources at their defaults: rd_point_ntc (banana, 3000 steps,
        65,536 samples in one stream) and rd_point_ecvq (256 codewords, 200
-       steps): rate, distortion and wall time.
+       steps): rate, distortion and wall time;
+16. the single-program decode and GDN at any width and dtype:
+    a. ``decompress_batch_jit`` of the checkpoint's host-coded blobs of the
+       8 structured 768x512 images byte-equal to ``decompress_batch``, cold
+       (the program built, its two CUDA graphs captured) and warm (a cache
+       hit); blob 0 alone equal to row 0; a 512x768 image a new key, equal;
+       the device-coded blobs routed to K2 (1 launch), equal; a warm call's
+       launches, replays counted (K1 3, the general kernel 0); the memory
+       the cold call keeps (the two graphs' private pools); warm ms
+       (median of ``--reps``) against ``decompress_batch``, and one
+       ``profile_device`` pass of each (device busy and idle, no claim),
+       in which the K1 kernels the card's trace shows must equal the
+       counted launches of that same call;
+    b. the general GDN kernel (``fused_gdn_general``) against its twin at
+       the rows of the first GDN layer (8 x 384 x 256): float32 at C = 224,
+       256 and 320 within K1's 2e-5, float64 at C = 256 within 1e-12,
+       bfloat16 at C = 192 within two bf16 ulps, both directions, each
+       timed against its byte bound and its tensor-core bound (3xTF32 for
+       float32, FP64 tensor cores for float64, bf16 for bfloat16); and at
+       the six calls of 16c's round trip, with ``torch.addmm`` plus the
+       elementwise ops as a yardstick;
+    c. a seeded bmshj2018 at 320 filters: a quantized step of 2 crops on
+       the card against the CPU (8b's tolerances), the launches of a
+       training step (the general kernel 6, K1 0), the codec's round trip
+       of the 8 images (general 6, K1 0; byte-identical re-compression,
+       batch-1 decode equal to the batch-8 decode), and its jit decode
+       (general 3 a warm call, held against the card's trace).
 
 Then one JSON line with every kernel's numbers (and its launches on every
-path), the training numbers, the families' numbers and the library's
-(phase 15), the card line, and
-the last line ``{"ok": true, "device": {...}}``.
+path; the general kernel's must be 0 on every registry path), the training
+numbers, the families' numbers, the library's (phase 15) and the jit
+decode's (phase 16), the card line, and the last line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -725,8 +754,8 @@ def check_small_against_cpu(module, model, hw=(128, 192), **compress_kw) -> int:
     family ``module`` (same weights, same tables; ``compress_kw`` for a
     one-image codec's compress, b2018's quality): latents agree to 1e-4,
     reconstructions to one level. Returns the K1 launches of the card's
-    round trip."""
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    round trip (the general GDN kernel's must be 0)."""
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
 
     images = np.stack([structured_image(HEIGHT, WIDTH)[: hw[0], : hw[1]]] * 2)
     cpu_model = type(model)(model.config)
@@ -748,9 +777,11 @@ def check_small_against_cpu(module, model, hw=(128, 192), **compress_kw) -> int:
                          for im in images[:1]])
 
     round_trip(gpu)  # warm-up
-    fused_gdn.launches = 0
+    fused_gdn.launches = fused_gdn_general.launches = 0
     out_gpu = round_trip(gpu)
     launches = fused_gdn.launches
+    if fused_gdn_general.launches:
+        raise AssertionError(f"the general GDN kernel ran {fused_gdn_general.launches} times")
     out_cpu = round_trip(cpu)
     diff = np.abs(out_gpu.astype(np.int16) - out_cpu.astype(np.int16))
     log(f"  {hw[0]}x{hw[1]} input vs CPU path ({type(model).__name__}): max |diff| "
@@ -767,32 +798,35 @@ def num_streams(codec) -> int:
 
 
 def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
-                cpu_check: bool = True, gdn: int = 6) -> tuple:
+                cpu_check: bool = True, gdn: int = 6, gdn_general: int = 0) -> tuple:
     """A hyperprior codec's host-coded path: launches over exactly
-    compress_batch + decompress_batch (``gdn`` for K1), byte-identical
+    compress_batch + decompress_batch (``gdn`` for K1, ``gdn_general`` for
+    the general GDN kernel), byte-identical
     re-compression, batch-1 decode equal to the batch-8 decode, PSNR and
     bpp (PSNR held to ``min_psnr`` where the weights are trained ones), and
     with ``cpu_check`` a small input against the CPU path of ``module``.
     Returns (blobs, reconstruction, launches)."""
     from compression_tpu_torch.models.device_coding import num_fields
 
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.util.image import psnr_np
 
     codec.compress_batch(images[:1])  # warm-up: cuDNN handles, kernel load
 
     # The path's run: the counts cover exactly compress + decompress.
-    fused_gdn.launches = 0
+    fused_gdn.launches = fused_gdn_general.launches = 0
     t0 = time.perf_counter()
     blobs = codec.compress_batch(images)
     t1 = time.perf_counter()
     out = codec.decompress_batch(blobs)
     t2 = time.perf_counter()
-    launches = {"gdn": fused_gdn.launches}
+    launches = {"gdn": fused_gdn.launches, "gdn_general": fused_gdn_general.launches}
     log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress {1e3 * (t1 - t0):.1f} ms, "
-        f"decompress {1e3 * (t2 - t1):.1f} ms; K1 launches {launches['gdn']}")
-    if launches["gdn"] != gdn:
-        raise AssertionError(f"expected {gdn} K1 launches, saw {launches['gdn']}")
+        f"decompress {1e3 * (t2 - t1):.1f} ms; K1 launches {launches['gdn']}, general "
+        f"GDN kernel {launches['gdn_general']}")
+    if launches != {"gdn": gdn, "gdn_general": gdn_general}:
+        raise AssertionError(f"expected {gdn} K1 and {gdn_general} general GDN launches, "
+                             f"saw {launches}")
     if out.shape != images.shape or out.dtype != np.uint8:
         raise AssertionError(f"bad output {out.shape} {out.dtype}")
     fields = num_streams(codec) + 3
@@ -821,14 +855,15 @@ def phase_codec_device(codec, images, host_blobs, host_out,
     """A device-coded path: launches over exactly compress_batch +
     decompress_batch (K3 2 and K2 1 a y stream, K1 ``gdn``), and its outputs
     against the host coder's; each y stream within 1.1x the host coder's
-    string for it plus the lane states."""
+    string for it plus the lane states. The general GDN kernel must not run."""
     from compression_tpu_torch.codec import rans
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.util import PackedTensors
     from compression_tpu_torch.util.image import psnr_np
 
     codec.decompress_batch(codec.compress_batch(images[:1], coder="device"))  # warm-up
     rans.rans_encode.launches = rans.rans_decode.launches = fused_gdn.launches = 0
+    fused_gdn_general.launches = 0
     rans.rans_decode.variant_launches.update({"on_chip": 0, "global": 0})
     t0 = time.perf_counter()
     blobs = codec.compress_batch(images, coder="device")
@@ -836,11 +871,12 @@ def phase_codec_device(codec, images, host_blobs, host_out,
     out = codec.decompress_batch(blobs)
     t2 = time.perf_counter()
     launches = {"rans_encode": rans.rans_encode.launches,
-                "rans_decode": rans.rans_decode.launches, "gdn": fused_gdn.launches}
+                "rans_decode": rans.rans_decode.launches, "gdn": fused_gdn.launches,
+                "gdn_general": fused_gdn_general.launches}
     log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress "
         f"{1e3 * (t1 - t0):.1f} ms, decompress {1e3 * (t2 - t1):.1f} ms; launches {launches}")
     S = num_streams(codec)
-    if launches != {"rans_encode": 2 * S, "rans_decode": S, "gdn": gdn}:
+    if launches != {"rans_encode": 2 * S, "rans_decode": S, "gdn": gdn, "gdn_general": 0}:
         raise AssertionError(f"expected K3 {2 * S} (fields, lanes a stream), K2 {S}, "
                              f"K1 {gdn} launches, saw {launches}")
     variants = dict(rans.rans_decode.variant_launches)
@@ -874,12 +910,14 @@ def phase_codec_device(codec, images, host_blobs, host_out,
 
 
 def kind_of(kernel: str, ops: list) -> str:
-    """The kind of a device activity, from its name (K1, K3, K2, copies) or
+    """The kind of a device activity, from its name (K1, the general GDN
+    kernel, K3, K2, copies) or
     from the CPU ops it was launched under, innermost first (ChannelNorm's
     forward, traced by a ``record_function``; Adam; K1's backward;
     convolutions backward and forward)."""
     low, chain = kernel.lower(), " ".join(ops)
-    for kind, parts in (("K1", ("gdn_kernel",)), ("K3", ("rans_fields", "rans_encode")),
+    for kind, parts in (("gdn_general", ("gdn_general_kernel",)), ("K1", ("gdn_kernel",)),
+                        ("K3", ("rans_fields", "rans_encode")),
                         ("K2", ("rans_decode",)), ("copies", ("memcpy", "memset"))):
         if any(part in low for part in parts):
             return kind
@@ -940,7 +978,8 @@ def profile_device(label: str, run, steps: int = 1, top: int = 0) -> dict:
         log(f"profile ({label}): the profiler saw no device activity; not measured")
         return {}
     kinds = dict.fromkeys(("conv_forward", "conv_backward", "channelnorm", "K1",
-                           "gdn_backward", "adam", "K3", "K2", "copies", "other"), 0.0)
+                           "gdn_general", "gdn_backward", "adam", "K3", "K2", "copies",
+                           "other"), 0.0)
     per_kernel, overlap, end, end_stream, same_stream = {}, {}, float("-inf"), None, 0.0
     counts = dict.fromkeys(kinds, 0)
     for start, stop, name, linked, stream in device:
@@ -1142,12 +1181,13 @@ def check_step_against_cpu(make_model, make_loss_fn, label: str) -> float:
 
 
 def count_step_launches(model, make_loss_fn, label: str, gdn: int = 6,
-                        tcfg=None) -> dict:
+                        tcfg=None, gdn_general: int = 0) -> dict:
     """A training main path's run: one train_step of a batch of 8 of
     ``model`` (Adam as ``tcfg`` sets it), the counts set to 0 just before
-    and read just after; ``gdn`` K1 launches expected."""
+    and read just after; ``gdn`` K1 and ``gdn_general`` general GDN
+    launches expected."""
     from compression_tpu_torch.codec import rans
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.models import common
 
     tcfg = tcfg or common.TrainConfig()
@@ -1159,15 +1199,18 @@ def count_step_launches(model, make_loss_fn, label: str, gdn: int = 6,
     common.train_step(model, optimizer, loss_fn, x, gen, common.lr_schedule(tcfg))  # warm-up
     sync()
     fused_gdn.launches = rans.rans_encode.launches = rans.rans_decode.launches = 0
+    fused_gdn_general.launches = 0
     loss, _ = common.train_step(model, optimizer, loss_fn, x, gen, common.lr_schedule(tcfg))
     sync()
     launches = {"gdn": fused_gdn.launches, "rans_encode": rans.rans_encode.launches,
-                "rans_decode": rans.rans_decode.launches}
+                "rans_decode": rans.rans_decode.launches,
+                "gdn_general": fused_gdn_general.launches}
     log(f"  {label} one training step of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}: launches "
         f"{launches} (loss {loss.item():.4f})")
-    if launches != {"gdn": gdn, "rans_encode": 0, "rans_decode": 0}:
-        raise AssertionError(f"{label}: expected K1 {gdn}, K3 0, K2 0 launches, "
-                             f"saw {launches}")
+    if launches != {"gdn": gdn, "rans_encode": 0, "rans_decode": 0,
+                    "gdn_general": gdn_general}:
+        raise AssertionError(f"{label}: expected K1 {gdn}, K3 0, K2 0, general GDN "
+                             f"{gdn_general} launches, saw {launches}")
     return launches
 
 
@@ -1409,7 +1452,7 @@ def phase_factorized(card: str) -> dict:
     """Phase 9: bls2017 and bmshj2018-factorized at full width: training
     from the seed, then the one-image codec over the 8 images; and an
     8-filter model's round trip (K1 at C = 8, padded to 32)."""
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.models import bls2017
     from compression_tpu_torch.util import PackedTensors
     from compression_tpu_torch.util.image import psnr_np
@@ -1424,12 +1467,12 @@ def phase_factorized(card: str) -> dict:
         codec = bls2017.Codec(model, device=DEVICE)
         codec.decompress(codec.compress(images[0]))  # warm-up
         # The path's run: the counts cover exactly one compress + decompress.
-        fused_gdn.launches = 0
+        fused_gdn.launches = fused_gdn_general.launches = 0
         blob = codec.compress(images[0])
         first = codec.decompress(blob)
-        launches = {"gdn": fused_gdn.launches}
+        launches = {"gdn": fused_gdn.launches, "gdn_general": fused_gdn_general.launches}
         want = 4 if cfg.arch == "bls2017" else 6
-        if launches["gdn"] != want:
+        if launches != {"gdn": want, "gdn_general": 0}:
             raise AssertionError(f"9 {name}: expected {want} K1 launches, saw {launches}")
         t0 = time.perf_counter()
         blobs = [codec.compress(image) for image in images]
@@ -1469,7 +1512,7 @@ def phase_factorized(card: str) -> dict:
     codec = bls2017.Codec(tiny, device=DEVICE)
     image = structured_image(HEIGHT, WIDTH)[:96, :130]
     results["bls2017 8 filters"] = dict(
-        launches={"gdn": tiny_launches},
+        launches={"gdn": tiny_launches, "gdn_general": 0},  # held in check_small_against_cpu
         k1_max_abs_err=check_k1_on_path(tiny, lambda: codec.decompress(codec.compress(image)),
                                         "9 bls2017 8 filters"))
     return results
@@ -1603,7 +1646,7 @@ def phase_b2018(card: str) -> dict:
     """Phase 11: the two b2018 models at full width: train_model from the
     seed, the launches of a training step, then the one-image codec over
     the 8 images at each quality."""
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.models import b2018, common
     from compression_tpu_torch.models.device_coding import num_fields
     from compression_tpu_torch.util import PackedTensors
@@ -1623,11 +1666,11 @@ def phase_b2018(card: str) -> dict:
         codec = b2018.Codec(model, device=DEVICE)
         codec.decompress(codec.compress(images[0], quality=1))  # warm-up
         # The path's run: the counts cover exactly one compress + decompress.
-        fused_gdn.launches = 0
+        fused_gdn.launches = fused_gdn_general.launches = 0
         blob = codec.compress(images[0], quality=cfg.num_qualities)
         first = codec.decompress(blob)
-        launches = {"gdn": fused_gdn.launches}
-        if launches["gdn"] != gdn:
+        launches = {"gdn": fused_gdn.launches, "gdn_general": fused_gdn_general.launches}
+        if launches != {"gdn": gdn, "gdn_general": 0}:
             raise AssertionError(f"11 {name}: expected {gdn} K1 launches, saw {launches}")
         per_q = {}
         for quality in range(1, cfg.num_qualities + 1):
@@ -1962,7 +2005,7 @@ def count_hific_step_launches(cfg) -> dict:
     TRAIN_BATCH crops, the counts set to 0 just before and read just after;
     then a profile of 3 steps by kind."""
     from compression_tpu_torch.codec import rans
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.models import hific
 
     model = hific.HificModel(cfg, seed=1).to(DEVICE)
@@ -1973,14 +2016,17 @@ def count_hific_step_launches(cfg) -> dict:
     step(x, gen)  # warm-up
     sync()
     fused_gdn.launches = rans.rans_encode.launches = rans.rans_decode.launches = 0
+    fused_gdn_general.launches = 0
     metrics = step(x, gen)
     sync()
     launches = {"gdn": fused_gdn.launches, "rans_encode": rans.rans_encode.launches,
-                "rans_decode": rans.rans_decode.launches}
+                "rans_decode": rans.rans_decode.launches,
+                "gdn_general": fused_gdn_general.launches}
     log(f"  13b one joint step of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}: launches "
         f"{launches} (g_loss {metrics['g_loss'].item():.4f})")
-    if launches != {"gdn": 0, "rans_encode": 0, "rans_decode": 0}:
-        raise AssertionError(f"13b: expected K1 0, K3 0, K2 0 launches, saw {launches}")
+    if launches != {"gdn": 0, "rans_encode": 0, "rans_decode": 0, "gdn_general": 0}:
+        raise AssertionError(f"13b: expected K1 0, K3 0, K2 0, general GDN 0 launches, "
+                             f"saw {launches}")
     prof = profile_device(f"13b 3 joint steps of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}",
                           lambda: [step(x, gen) for _ in range(3)], steps=3, top=8)
     return launches, prof
@@ -2088,21 +2134,23 @@ CLI_GDN = {"bls2017": 2, "bmshj2018-factorized": 3, "mbt2018": 3,
 
 def reset_launches() -> None:
     from compression_tpu_torch.codec import rans
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
 
     fused_gdn.launches = rans.rans_encode.launches = rans.rans_decode.launches = 0
+    fused_gdn_general.launches = 0
 
 
 def read_launches() -> dict:
     from compression_tpu_torch.codec import rans
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
 
     return {"gdn": fused_gdn.launches, "rans_encode": rans.rans_encode.launches,
-            "rans_decode": rans.rans_decode.launches}
+            "rans_decode": rans.rans_decode.launches,
+            "gdn_general": fused_gdn_general.launches}
 
 
-def launches_of(gdn: int = 0, enc: int = 0, dec: int = 0) -> dict:
-    return {"gdn": gdn, "rans_encode": enc, "rans_decode": dec}
+def launches_of(gdn: int = 0, enc: int = 0, dec: int = 0, general: int = 0) -> dict:
+    return {"gdn": gdn, "rans_encode": enc, "rans_decode": dec, "gdn_general": general}
 
 
 def tfci(argv: list, want=None, device: str = None, label: str = None) -> tuple:
@@ -2161,8 +2209,8 @@ def tfci_process(argv: list, first_call: bool = False) -> dict:
 
 
 def cli_profile(label: str, argv: list, launches: dict) -> None:
-    """The verb again under ``profile_device``: the K1, K3 and K2 kernels
-    the trace shows equal the wrappers' counts."""
+    """The verb again under ``profile_device``: the K1, general GDN, K3 and
+    K2 kernels the trace shows equal the wrappers' counts."""
     from compression_tpu_torch.cli.tfci import main
 
     with contextlib.redirect_stdout(io.StringIO()):
@@ -2170,7 +2218,8 @@ def cli_profile(label: str, argv: list, launches: dict) -> None:
     if not prof:
         return
     seen = {name: prof["count_by_kind"][kind] for name, kind in (
-        ("gdn", "K1"), ("rans_encode", "K3"), ("rans_decode", "K2"))}
+        ("gdn", "K1"), ("rans_encode", "K3"), ("rans_decode", "K2"),
+        ("gdn_general", "gdn_general"))}
     log(f"  traced kernels of tfci {label}: {seen}")
     if seen != launches:
         raise AssertionError(f"tfci {label}: the trace shows {seen}, the wrappers {launches}")
@@ -2565,13 +2614,15 @@ def check_cdf_twin(pmf: np.ndarray, lengths: np.ndarray, cdf: np.ndarray, precis
         ties.append(int(r))
     # Each repair step moves a row's sum by one unit.
     max_steps = int(np.abs((1 << precision) - initial_sums(pmf, lengths, precision)).max())
+    # Byte bound: the PMF rows and lengths read once, the CDF rows written once.
+    bound_ms = 1e3 * (pmf.nbytes + lengths.nbytes + got.nbytes) / PEAK_HBM_BYTES
     log(f"  15f CDF twin over {len(lengths)} rows of up to {pmf.shape[1]} entries: card "
-        f"{twin_ms:.2f} ms a call (float64, {max_steps} repair steps at most), C++ on the "
-        f"host {cpp_ms:.2f} ms; rows equal to the C++ quantizer: "
-        f"{len(lengths) - len(ties)} of {len(lengths)} ({len(ties)} explained by ties); "
-        f"exact on the CPU ({card})")
+        f"{twin_ms:.2f} ms a call (float64, {max_steps} repair steps at most; byte bound "
+        f"{bound_ms:.4f} ms), C++ on the host {cpp_ms:.2f} ms; rows equal to the C++ "
+        f"quantizer: {len(lengths) - len(ties)} of {len(lengths)} ({len(ties)} explained by "
+        f"ties); exact on the CPU ({card})")
     return dict(rows=int(len(lengths)), max_len=int(pmf.shape[1]), ms=twin_ms, cpp_ms=cpp_ms,
-                repair_steps=max_steps, tie_rows=len(ties), cpu_exact=True)
+                bound_ms=bound_ms, repair_steps=max_steps, tie_rows=len(ties), cpu_exact=True)
 
 
 def spy_pmf(build):
@@ -2865,6 +2916,287 @@ def phase_library(card: str) -> dict:
                 signal_conv_rel_err=convs, cdf_twin=twin, toy=toy, seconds=seconds)
 
 
+# Phase 16: the single-program decode and GDN at any width and dtype.
+PEAK_FP64_FLOPS = 67e12   # H100 SXM data sheet, fp64 on the tensor cores (DMMA, dense)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, bf16/fp16 on the tensor cores (dense)
+WIDE_FILTERS = 320       # 16c: a bmshj2018 wider than K1's 192 channels
+BF16_ULPS = 2            # 16b: bfloat16 within two ulps of the twin's output
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn`` (which ends in a host sync) over
+    ``reps`` warm calls."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def reserved_bytes() -> int:
+    """Device memory the caching allocator holds once its free blocks are
+    released: what live tensors and CUDA graphs' private pools keep."""
+    if not torch.cuda.is_available():
+        return 0
+    sync()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def traced_launches(label: str, run) -> dict:
+    """``run()`` under ``profile_device``, with every launch count set to 0
+    just before it: the K1 and general GDN kernels the card's trace shows
+    must equal the wrappers' counts of that same call. Returns the profile."""
+    reset_launches()
+    prof = profile_device(label, run)
+    counted = read_launches()
+    if not prof:
+        raise AssertionError(f"{label}: the trace saw no device activity")
+    seen = {"gdn": prof["count_by_kind"]["K1"],
+            "gdn_general": prof["count_by_kind"]["gdn_general"]}
+    log(f"  traced kernels of {label}: {seen}")
+    if seen != {k: counted[k] for k in seen}:
+        raise AssertionError(f"{label}: the trace shows {seen}, the wrappers {counted}")
+    return prof
+
+
+def phase_jit_decode(card: str, reps: int) -> dict:
+    """16a: ``decompress_batch_jit`` of the checkpoint's blobs of the 8
+    structured 768x512 images against ``decompress_batch``."""
+    from compression_tpu_torch.models import bmshj2018
+
+    images = structured_images()
+    codec = bmshj2018.Codec(ckpt_model(), device=DEVICE)
+    host_blobs = codec.compress_batch(images)
+    device_blobs = codec.compress_batch(images, coder="device")
+    want = codec.decompress_batch(host_blobs)
+    before = reserved_bytes()
+    t0 = time.perf_counter()
+    cold = codec.decompress_batch_jit(host_blobs)  # builds the program, captures its graphs
+    cold_ms = 1e3 * (time.perf_counter() - t0)
+    program_mib = (reserved_bytes() - before) / 2 ** 20
+    reset_launches()
+    warm = codec.decompress_batch_jit(host_blobs)
+    sync()
+    launches = read_launches()
+    keys = list(codec._jit_decoders)
+    if not (np.array_equal(cold, want) and np.array_equal(warm, want)):
+        raise AssertionError("16a: the jit decode differs from decompress_batch")
+    if len(keys) != 1:
+        raise AssertionError(f"16a: the second call built a program of its own: {keys}")
+    if launches != launches_of(gdn=3):
+        raise AssertionError(f"16a: a warm jit decode launched {launches}, expected K1 3")
+    single = codec.decompress_batch_jit(host_blobs[:1])
+    if not np.array_equal(single[0], want[0]):
+        raise AssertionError("16a: the batch-1 jit decode differs from row 0 of the batch of 8")
+    other = structured_image(WIDTH, HEIGHT)[None]
+    other_blobs = codec.compress_batch(other)
+    programs = len(codec._jit_decoders)
+    if not np.array_equal(codec.decompress_batch_jit(other_blobs),
+                          codec.decompress_batch(other_blobs)):
+        raise AssertionError(f"16a: the jit decode of a {WIDTH}x{HEIGHT} image differs")
+    if len(codec._jit_decoders) != programs + 1:
+        raise AssertionError(f"16a: the {WIDTH}x{HEIGHT} image got no program of its own: "
+                             f"{list(codec._jit_decoders)}")
+    reset_launches()
+    device_out = codec.decompress_batch_jit(device_blobs)
+    sync()
+    device_launches = read_launches()
+    if device_launches != launches_of(gdn=3, dec=1):
+        raise AssertionError(f"16a: device-coded blobs launched {device_launches}, "
+                             "expected K2 1 and K1 3")
+    if not np.array_equal(device_out, codec.decompress_batch(device_blobs)):
+        raise AssertionError("16a: the device-coded jit decode differs from decompress_batch")
+    jit_ms = [median_ms(lambda: codec.decompress_batch_jit(host_blobs), reps)]
+    batch_ms = [median_ms(lambda: codec.decompress_batch(host_blobs), reps)]
+    batch_ms.append(median_ms(lambda: codec.decompress_batch(host_blobs), reps))
+    jit_ms.append(median_ms(lambda: codec.decompress_batch_jit(host_blobs), reps))
+    log(f"16a jit decode ({card}), {BATCH}x{HEIGHT}x{WIDTH} from the checkpoint: byte-equal "
+        f"to decompress_batch (cold {cold_ms:.1f} ms, then a cache hit, keys {keys}; the "
+        f"program keeps {program_mib:.1f} MiB of device memory); batch 1 "
+        f"== row 0; a {WIDTH}x{HEIGHT} image a new key, equal; device-coded blobs to K2, equal "
+        f"(launches {device_launches}); a warm jit decode launches {launches}; warm ms "
+        f"(median of {reps}, jit, batch, batch, jit): decompress_batch_jit "
+        f"{jit_ms[0]:.3f} / {jit_ms[1]:.3f}, decompress_batch {batch_ms[0]:.3f} / "
+        f"{batch_ms[1]:.3f}")
+    profiles = {
+        "jit": traced_launches(f"16a decompress_batch_jit of {BATCH}",
+                               lambda: codec.decompress_batch_jit(host_blobs)),
+        "batch": profile_device(f"16a decompress_batch of {BATCH}",
+                                lambda: codec.decompress_batch(host_blobs)),
+    }
+    return dict(launches=launches, device_launches=device_launches, cold_ms=cold_ms,
+                program_mib=program_mib, jit_ms=jit_ms, batch_ms=batch_ms,
+                profile={k: {kk: p.get(kk) for kk in ("wall_ms", "busy_ms", "idle")}
+                         for k, p in profiles.items()})
+
+
+def general_bounds_ms(rows: int, c: int, dtype) -> dict:
+    """Least times of one general-kernel call: x read and y written once,
+    beta and gamma read once, over the HBM rate; and its rows x C x C
+    multiply-adds on the fastest units that keep the tolerance: float32 as
+    the three TF32 products of 3xTF32 (K1's route, within 2e-5) over the
+    TF32 rate, float64 over the FP64 tensor cores' rate, bfloat16 and
+    float16 over their tensor-core rate (a float accumulator; one product
+    rounds x*x to the storage type, half an ulp)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * rows * c + c * c + c) * size
+    flops = 2 * rows * c * c
+    ops_ms = 1e3 * {torch.float32: 3 * flops / PEAK_TF32_FLOPS,
+                    torch.float64: flops / PEAK_FP64_FLOPS}.get(dtype, flops / PEAK_BF16_FLOPS)
+    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES, "ops": ops_ms}
+
+
+GENERAL_OPS_UNITS = {torch.float32: "3xTF32", torch.float64: "fp64 tensor cores"}
+
+
+def general_close(got, want) -> float:
+    """The general kernel against its twin: float32 within K1's 2e-5,
+    float64 within 1e-12, bfloat16 within two ulps of the twin's output.
+    Returns the largest absolute error."""
+    if want.dtype == torch.bfloat16:
+        g, w = got.double(), want.double()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -60))) - 7)
+        worst = ((g - w).abs() / ulp).max().item()
+        if worst > BF16_ULPS:
+            raise AssertionError(f"16b: bfloat16 off its twin by {worst} ulps")
+    else:
+        tol = 1e-12 if want.dtype == torch.float64 else GDN_TOL
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    return (got.double() - want.double()).abs().max().item()
+
+
+def time_general(label: str, x, beta, gamma, inverse: bool, reps: int,
+                 yardstick: bool = False) -> dict:
+    """One general-kernel call against its twin: its error, kernel and twin
+    ms (in turns: twin, kernel, kernel, twin), the bounds, and with
+    ``yardstick`` the ms of ``torch.addmm`` plus the elementwise ops (K1's
+    yardstick, never called by the port)."""
+    from compression_tpu_torch.layers.gdn_kernel import fused_gdn_general, fused_gdn_reference
+
+    def library(x, beta, gamma, inverse):
+        norm = torch.addmm(beta, x * x, gamma)
+        return x * (norm.sqrt_() if inverse else norm.rsqrt_())
+
+    rows, c = x.numel() // x.shape[-1], x.shape[-1]
+    with torch.inference_mode():
+        got = fused_gdn_general(x, beta, gamma, inverse)
+        want = fused_gdn_reference(x, beta, gamma, inverse)
+        sync()
+        err = general_close(got, want)
+        runs = {"plain_ms": [], "ms": [], "library_ms": []}
+        order = [("plain_ms", fused_gdn_reference), ("ms", fused_gdn_general)]
+        if yardstick:
+            order.append(("library_ms", library))
+        for key, fn in order + [("ms", fused_gdn_general), ("plain_ms", fused_gdn_reference)]:
+            runs[key].append(cuda_ms(lambda: fn(x, beta, gamma, inverse), reps))
+    times = {k: sum(v) / len(v) if v else None for k, v in runs.items()}
+    bounds = general_bounds_ms(rows, c, x.dtype)
+    bound = max(bounds.values())
+    log(f"  16b {label:28s} rows {rows:7d} C {c}: max_abs_err {err:.3e}; kernel "
+        f"{times['ms']:.4f} ms, twin {times['plain_ms']:.4f} ms"
+        + (f", addmm + elementwise {times['library_ms']:.4f} ms" if yardstick else "")
+        + f"; bound {bounds['bytes']:.4f} ms (bytes), {bounds['ops']:.4f} ms "
+        f"({GENERAL_OPS_UNITS.get(x.dtype, 'bf16 tensor cores')}); "
+        f"{100 * bound / times['ms']:.1f}% of bound")
+    return dict(max_abs_err=err, bound_ms=bound, bytes_ms=bounds["bytes"],
+                ops_ms=bounds["ops"], **times)
+
+
+def phase_general_kernel(model, reps: int) -> dict:
+    """16b: the general GDN kernel against its twin on the card, at the rows
+    of the first GDN layer of the batch (8 x 384 x 256): float32 at C = 224,
+    256 and 320, float64 at C = 256, bfloat16 at C = 192; and at the six
+    calls of the 320-filter model's round trip (16c), whose sum is its line
+    in the kernels JSON."""
+    from compression_tpu_torch.layers import parameters
+
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    rows = BATCH * (HEIGHT // 2) * (WIDTH // 2)
+
+    def inputs(n, c, dtype):
+        x = torch.randn(n, c, device=DEVICE, generator=gen).to(dtype)
+        beta = (torch.rand(c, device=DEVICE, generator=gen) * 1.5 + 0.5).to(dtype)
+        gamma = (torch.rand(c, c, device=DEVICE, generator=gen) * (0.2 / c)
+                 + 0.05 * torch.eye(c, device=DEVICE)).to(dtype)
+        return x, beta, gamma
+
+    checks = {}
+    for c, dtype in ((224, torch.float32), (256, torch.float32), (320, torch.float32),
+                     (256, torch.float64), (192, torch.bfloat16)):
+        for inverse in (False, True):
+            label = f"{str(dtype).split('.')[-1]} C={c} {'inverse' if inverse else 'forward'}"
+            checks[label] = time_general(label, *inputs(rows, c, dtype), inverse, reps)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                  ops_ms=0.0)
+    max_err = 0.0
+    for label, n, inverse, (tname, lname) in gdn_shapes():
+        layer = getattr(getattr(model, tname), lname)
+        with torch.no_grad():
+            beta = parameters.nonneg_apply(layer.beta, layer.beta_min).to(DEVICE)
+            gamma = parameters.nonneg_apply(layer.gamma, 0.0).to(DEVICE)
+        x = torch.randn(n, gamma.shape[0], device=DEVICE, generator=gen)
+        r = time_general(f"path {label}", x, beta, gamma, inverse, reps, yardstick=True)
+        max_err = max(max_err, r["max_abs_err"])
+        for k in totals:
+            totals[k] += r[k]
+    bound_by = "bytes" if totals["bytes_ms"] >= totals["ops_ms"] else "operations"
+    log(f"16b general GDN kernel over the six calls of the {WIDE_FILTERS}-filter round trip: "
+        f"kernel {totals['ms']:.4f} ms, twin {totals['plain_ms']:.4f} ms, addmm + elementwise "
+        f"{totals['library_ms']:.4f} ms; bound {totals['bound_ms']:.4f} ms (bytes "
+        f"{totals['bytes_ms']:.4f}, 3xTF32 {totals['ops_ms']:.4f}), "
+        f"{100 * totals['bound_ms'] / totals['ms']:.1f}% of bound; max_abs_err {max_err:.3e}")
+    return dict(max_abs_err=max_err, bound_by=bound_by, checks=checks,
+                **{k: totals[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+
+
+def phase_wide_gdn(card: str, reps: int) -> dict:
+    """16c: a seeded bmshj2018 at 320 filters (GDN through the general
+    kernel): a quantized step on the card against the CPU, the launches of
+    a training step, the codec's round trip of the 8 images, and its jit
+    decode."""
+    from compression_tpu_torch.models import bmshj2018
+
+    cfg = bmshj2018.Config(num_filters=WIDE_FILTERS)
+    cpu_err = check_step_against_cpu(lambda: bmshj2018.BMSHJ2018Model(cfg, seed=0),
+                                     bmshj2018.make_loss_fn, f"16c {WIDE_FILTERS} filters")
+    train_launches = count_step_launches(bmshj2018.BMSHJ2018Model(cfg, seed=1),
+                                         bmshj2018.make_loss_fn, "16c", gdn=0, gdn_general=6)
+    model = bmshj2018.BMSHJ2018Model(cfg, seed=0)
+    codec = bmshj2018.Codec(model, device=DEVICE)
+    images = structured_images()
+    blobs, out, host_launches = phase_codec(
+        codec, images, bmshj2018, label=f"16c codec at {WIDE_FILTERS} filters ({card})",
+        min_psnr=None, cpu_check=False, gdn=0, gdn_general=6)
+    codec.decompress_batch_jit(blobs)
+    reset_launches()
+    jit_out = codec.decompress_batch_jit(blobs)
+    sync()
+    jit_launches = read_launches()
+    if not np.array_equal(jit_out, out) or jit_launches != launches_of(general=3):
+        raise AssertionError(f"16c: the jit decode differs or launched {jit_launches}")
+    traced_launches(f"16c decompress_batch_jit at {WIDE_FILTERS} filters",
+                    lambda: codec.decompress_batch_jit(blobs))
+    log(f"  16c jit decode at {WIDE_FILTERS} filters: equal to decompress_batch; a warm call "
+        f"launches {jit_launches}")
+    return dict(cpu_max_rel_err=cpu_err, train_launches=train_launches,
+                host_launches=host_launches, jit_launches=jit_launches, model=model)
+
+
+def phase_jit_and_any_gdn(card: str, reps: int) -> dict:
+    """16: the single-program decode (16a), the general GDN kernel (16b), a
+    bmshj2018 at 320 filters (16c)."""
+    t_phase = time.perf_counter()
+    jit = phase_jit_decode(card, reps)
+    wide = phase_wide_gdn(card, reps)
+    general = phase_general_kernel(wide.pop("model"), reps)
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 16 took {seconds:.1f} s ({card})")
+    return dict(jit=jit, wide=wide, general=general, seconds=seconds)
+
+
 def timed_ms(fn) -> float:
     sync()
     t0 = time.perf_counter()
@@ -2923,6 +3255,7 @@ def main() -> int:
     hi = phase_hific(card, args.reps, args.batches)
     cli = phase_cli(card)
     library = phase_library(card)
+    any_gdn = phase_jit_and_any_gdn(card, args.reps)
 
     # Each kernel's launches on every path, each path counted on its own.
     paths = {
@@ -2947,7 +3280,22 @@ def main() -> int:
            else f"tfci {name} {verb} (--allow-random)": counts
            for name, verbs in cli["families"].items() for verb, counts in verbs.items()},
         "library (phase 15a): bmshj2018 analysis of the 8 images": library["launches"],
+        "bmshj2018 jit decode (16a, warm)": any_gdn["jit"]["launches"],
+        "bmshj2018 jit decode, device-coded blobs (16a)": any_gdn["jit"]["device_launches"],
     }
+    # Paths of a model outside the registry: GDN at 320 channels (16c).
+    wide_paths = {
+        f"bmshj2018 at {WIDE_FILTERS} filters codec, host coder": any_gdn["wide"]["host_launches"],
+        f"bmshj2018 at {WIDE_FILTERS} filters train step": any_gdn["wide"]["train_launches"],
+        f"bmshj2018 at {WIDE_FILTERS} filters jit decode (warm)": any_gdn["wide"]["jit_launches"],
+    }
+    unread = [path for path, counts in {**paths, **wide_paths}.items()
+              if "gdn_general" not in counts]
+    ran = {path: counts["gdn_general"] for path, counts in paths.items()
+           if counts.get("gdn_general")}
+    if unread or ran:
+        raise AssertionError(f"the general GDN kernel's count was not read on {unread}, "
+                             f"or it ran on a registry path: {ran}")
 
     kernels = [{
         "name": "gdn",
@@ -2962,7 +3310,18 @@ def main() -> int:
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
         "train_launches": training["launches"]["gdn"],
-        "paths": {path: counts.get("gdn", 0) for path, counts in paths.items()},
+        "paths": {path: counts.get("gdn", 0) for path, counts in {**paths, **wide_paths}.items()},
+    }, {
+        "name": "gdn_general",
+        "route": "cuda",
+        "source": "compression_tpu_torch/csrc/gdn.cu",
+        "replaces": "compression_tpu/layers/pallas/gdn_kernel.py:41",
+        "launches": any_gdn["wide"]["host_launches"]["gdn_general"],
+        **{k: any_gdn["general"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+        "train_launches": any_gdn["wide"]["train_launches"]["gdn_general"],
+        "paths": {path: counts["gdn_general"] for path, counts in {**paths, **wide_paths}.items()},
+        "checks": any_gdn["general"]["checks"],
     }]
     for name, replaces in (("rans_encode", "compression_tpu/codec/rans.py:178"),
                            ("rans_decode", "compression_tpu/codec/rans.py:257")):
@@ -2979,7 +3338,8 @@ def main() -> int:
             "bound_by": rans_k[name]["bound_by"],
             "library_ms": None,  # no single PyTorch call computes rANS
             "train_launches": training["launches"][name],
-            "paths": {path: counts.get(name, 0) for path, counts in paths.items()},
+            "paths": {path: counts.get(name, 0)
+                      for path, counts in {**paths, **wide_paths}.items()},
             **{family: {k: r["rans"][name][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "floor_ms", "steps")}
                for family, r in (("mbt2018", mbt), ("ms2020", ms), ("hific", hi))},
@@ -3011,8 +3371,11 @@ def main() -> int:
                                     "bpp", "eval_mean", "loss_first5", "loss_last5",
                                     "seconds")}
     library_line = {k: v for k, v in library.items() if k != "launches"}
+    jit_line = {**{k: v for k, v in any_gdn["jit"].items() if "launches" not in k},
+                "wide_cpu_max_rel_err": any_gdn["wide"]["cpu_max_rel_err"],
+                "seconds": any_gdn["seconds"]}
     print(json.dumps({"kernels": kernels, "training": train_line, "families": families,
-                      "cli": cli_line, "library": library_line}))
+                      "cli": cli_line, "library": library_line, "jit_decode": jit_line}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,8 +6,10 @@ its module paths so every counterpart is easy to find:
   ops/             lower_bound / upper_bound, clip, perturb_and_apply,
                    round_st / soft_round, same-padding
   layers/          SignalConv1D/2D/3D (reflect padding, channel-separable,
-                   RDFT kernels), GDN (+ the hand-written CUDA kernel K1 at
-                   any width up to 192, and K1 under autograd), Round /
+                   RDFT kernels), GDN at any width and dtype (+ the
+                   hand-written CUDA kernels: K1, float32 up to 192
+                   channels, and fused_gdn_general for the rest, under
+                   autograd), Round /
                    SoftRound modules, parameters, initializers
   distributions/   Normal, Logistic, mixtures, DeepFactorized, uniform-noise
                    and round adapters, tails (analytic or by log-CDF)
@@ -15,10 +17,12 @@ its module paths so every counterpart is easy to find:
                    universal and power-law models: training calls, CDF
                    tables, coding
   codec/           native C++ range coder (ctypes) + host API (incl. the
-                   run-length gamma coder); the plain torch CDF quantizer
+                   run-length gamma coder) and its fixed-capacity buffer
+                   form (buffer_ops.py); the plain torch CDF quantizer
                    for any device; the device rANS coder (kernels K3/K2) and
                    its NumPy spec
-  models/          bmshj2018 scale hyperprior, mbt2018 mean-scale
+  models/          bmshj2018 scale hyperprior (with the single-program
+                   decode, decompress_batch_jit), mbt2018 mean-scale
                    hyperprior and ms2020 CHARM (Codecs with the host and
                    device coders; training), bls2017 factorized prior in
                    its two archs (bls2017, bmshj2018-factorized) and the
@@ -31,15 +35,17 @@ its module paths so every counterpart is easy to find:
                    device_coding.py (blob formats, the device coder's
                    stages), common.py (train loop, data, checkpoints),
                    toy_sources.py (NTC and ECVQ on 2-D sources)
-  parallel/        double-buffered device/host coding pipeline, staggered
-                   decode, CHARM's pipelined batch decode
+  parallel/        double-buffered device/host coding pipeline
+                   (pipeline_map), staggered decode, CHARM's pipelined
+                   batch decode
   util/            PackedTensors, image padding and metrics, numeric, tracing
-                   and stage timing
+                   and stage timing, device segments as CUDA graphs
   csrc/            CUDA C++ kernels (gdn.cu, rans.cu), built with nvcc at first use
   convert.py       weight bridge to and from the JAX package's flax checkpoints
                    (nested holders, flax nn.Conv kernels, spectral-norm
                    batch_stats)
   entry.py         bmshj2018's full-width loss step with example arguments
+  all_tests.py     post-install smoke run (python -m compression_tpu_torch.all_tests)
 
 It imports torch and numpy, never JAX or the JAX package. Entry points run
 on ``device="cuda"`` unless the caller asks for the CPU, and raise when CUDA

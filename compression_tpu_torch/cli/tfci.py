@@ -11,7 +11,7 @@ needs no model argument), the ``.train.msgpack`` resume states, the
 Usage:
   python -m compression_tpu_torch.cli.tfci models
   python -m compression_tpu_torch.cli.tfci compress bmshj2018-hyperprior-mse-6 in.png [out.tfci]
-  python -m compression_tpu_torch.cli.tfci decompress out.tfci [out.png]
+  python -m compression_tpu_torch.cli.tfci decompress out.tfci [out.png] [--jit]
   python -m compression_tpu_torch.cli.tfci dump out.tfci
   python -m compression_tpu_torch.cli.tfci train bls2017 --steps 1000 --glob 'data/*.png'
   python -m compression_tpu_torch.cli.tfci --device cpu eval bls2017 'data/*.png'
@@ -123,15 +123,27 @@ def cmd_compress(args) -> int:
 
 
 def cmd_decompress(args) -> int:
-    if args.jit:
-        raise _not_ported("--jit", 18)
     if args.spatial:
         raise _not_ported("--spatial", 17)
     with open(args.input, "rb") as f:
         data = f.read()
     name = PackedTensors(data).model
     entry, model = _load_model(name, args.allow_random, args.device)
-    image = entry.decompress(model, data, device=args.device)
+    if args.jit:
+        # The single-program decode: the host range-decodes the streams,
+        # the device segments between run as CUDA graphs; byte-equal to
+        # the staged decode.
+        if entry.family != "bmshj2018":
+            raise SystemExit(
+                f"--jit decode is implemented for the bmshj2018 family; "
+                f"{name!r} is {entry.family}"
+            )
+        from compression_tpu_torch.models import bmshj2018
+
+        codec = bmshj2018.make_codec(model, args.device)
+        image = codec.decompress_batch_jit([data])[0]
+    else:
+        image = entry.decompress(model, data, device=args.device)
     out = args.output or os.path.splitext(args.input)[0] + ".png"
     image_util.write_png(out, image)
     print(f"{out}: {image.shape[1]}x{image.shape[0]} (model {name})")
@@ -463,7 +475,9 @@ def main(argv=None) -> int:
     sp.add_argument("--allow-random", action="store_true")
     sp.add_argument(
         "--jit", action="store_true",
-        help="the single-program decode: not ported yet, raises",
+        help="single-program decode (bmshj2018 family): the host range-"
+             "decodes the streams, the device segments run as CUDA graphs; "
+             "byte-identical to the staged decode",
     )
     sp.add_argument("--spatial", type=int, default=None, metavar="N",
                     help=_SPATIAL_HELP)

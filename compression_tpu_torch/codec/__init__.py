@@ -1,8 +1,13 @@
 """Entropy coding: the C++ range coder (cc/, byte-identical to the JAX
-package's) behind a ctypes binding, and its NumPy-facing host API; the
-device rANS coder is :mod:`compression_tpu_torch.codec.rans` (kernels
+package's) behind a ctypes binding, its NumPy-facing host API and its
+fixed-capacity buffer form (:mod:`~compression_tpu_torch.codec.buffer_ops`);
+the device rANS coder is :mod:`compression_tpu_torch.codec.rans` (kernels
 K3/K2, with :mod:`~compression_tpu_torch.codec.rans_ref` as its spec)."""
 
+from compression_tpu_torch.codec.buffer_ops import (
+    make_buffer_decoder,
+    make_buffer_encoder,
+)
 from compression_tpu_torch.codec.host import (
     encode_capacity,
     entropy_decode,
@@ -17,6 +22,8 @@ __all__ = [
     "encode_capacity",
     "entropy_encode",
     "entropy_decode",
+    "make_buffer_decoder",
+    "make_buffer_encoder",
     "pmf_to_quantized_cdf",
     "pmf_to_quantized_cdf_torch",
     "run_length_gamma_encode",

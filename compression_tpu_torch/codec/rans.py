@@ -53,6 +53,7 @@ import torch
 
 from compression_tpu_torch.codec.rans_ref import build_slot_table
 from compression_tpu_torch.util import cuda_build
+from compression_tpu_torch.util.graphs import count_launch
 
 __all__ = [
     "RansTables",
@@ -445,8 +446,7 @@ def rans_encode(tables, values: torch.Tensor, rows: torch.Tensor, K: int,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check("rans_encode", rc, lib)
-    with _count_lock:  # pipeline worker threads launch concurrently
-        rans_encode.launches += 2 if N else 1
+    count_launch(rans_encode, 2 if N else 1)
     return out, lengths, overflow
 
 
@@ -492,8 +492,8 @@ def _decode_launch(t: RansTables, stream, rows, K, N, on_chip: bool):
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check("rans_decode", rc, lib)
+    count_launch(rans_decode)
     with _count_lock:
-        rans_decode.launches += 1
         rans_decode.variant_launches["on_chip" if on_chip else "global"] += 1
     return values, ok
 

@@ -49,10 +49,16 @@
 //  * A row's result depends only on that row: every row takes the same
 //    products in the same order, whatever its tile or place in the tile.
 //
-// C interface (loaded with ctypes): tpc_gdn_forward returns the
-// cudaError_t of the launch (0 on success); the wrapper raises otherwise.
+// The file also holds fused_gdn_general (below K1), the same function for
+// the widths and types K1 does not take, in plain CUDA C++.
+//
+// C interface (loaded with ctypes): tpc_gdn_forward (K1) and
+// tpc_gdn_general_forward return the cudaError_t of the launch (0 on
+// success); the wrappers raise otherwise.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 
@@ -414,6 +420,184 @@ cudaError_t dispatch(const float* x, const float* beta, const float* gamma,
                  : launch<C, false>(x, beta, gamma, out, rows, stream);
 }
 
+// fused_gdn_general: the same function as K1 (the TPU kernel's body,
+// _gdn_kernel at compression_tpu/layers/pallas/gdn_kernel.py:28) for every
+// input K1 cannot hold: any C >= 1, and x, beta, gamma stored as float,
+// double, __half or __nv_bfloat16. The norm is accumulated in float (double
+// for double) and y is stored in x's type, as the TPU kernel computes an f32
+// norm and casts its output to out_ref's type.
+//
+// Bound on an H100 SXM: per row it reads C values and writes C, and does C*C
+// multiply-adds. This kernel does them on the CUDA cores, but the card could
+// do them on its tensor cores within the same tolerances: float32 as 3xTF32
+// (K1 above keeps 2e-5 so), double on the FP64 tensor cores (DMMA), bf16 and
+// fp16 with a float accumulator. At C = 256 on 786,432 rows (the first GDN of
+// a batch of eight 768x512 images) the 103 GFLOP take 0.62 ms as 3xTF32 at
+// 495 TFLOP/s against 0.48 ms for the 1.6 GB of float32 bytes, and 1.54 ms in
+// double at 67 TFLOP/s against 0.96 ms of bytes; bf16 is bound by its bytes.
+// A tensor-core route for these widths is still to be written.
+//
+// Design: a CTA takes 128 rows and 64 output channels; each of its 256
+// threads keeps an 8-row by 4-channel block of the norm in registers. It
+// walks the input channels in chunks of 16, staging x*x ([k][row]; the row
+// stride padded to 132 against bank conflicts, 16-byte aligned for vector
+// reads) and gamma's [16][64] slice in shared memory, the next chunk's
+// values loaded into registers while this one's products run. A step of k
+// is three 16-byte shared loads (six for double: 8 rows of x*x, 4 channels
+// of gamma) for 32 multiply-adds. The epilogue adds beta and multiplies by
+// x in registers. Every row takes the same products in the same order (k =
+// 0..C-1), so a row's result does not depend on its tile or batch. It
+// launches on the caller's stream and never synchronizes: it can be
+// captured in a CUDA graph.
+constexpr int kGenRows = 128;
+constexpr int kGenCols = 64;
+constexpr int kGenK = 16;  // input channels a chunk (at 32, double's tiles pass 48 KB)
+constexpr int kGenThreads = 256;
+constexpr int kGenTR = 8;                 // rows a thread
+constexpr int kGenTC = 4;                 // output channels a thread
+constexpr int kGenXStride = kGenRows + 4;  // x*x row stride in shared memory
+
+template <typename T> struct Accum { using type = float; };
+template <> struct Accum<double> { using type = double; };
+
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ double to_acc(double v) { return v; }
+__device__ __forceinline__ float to_acc(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(double* p, double v) { *p = v; }
+__device__ __forceinline__ void store(__half* p, float v) { *p = __float2half_rn(v); }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// IGDN in float as norm * rsqrtf(norm), as K1 does, not the IEEE sqrtf (a
+// longer sequence with a special-case branch).
+__device__ __forceinline__ float norm_scale(float norm, bool inverse) {
+  return inverse ? norm * rsqrtf(norm) : rsqrtf(norm);
+}
+__device__ __forceinline__ double norm_scale(double norm, bool inverse) {
+  return inverse ? sqrt(norm) : rsqrt(norm);
+}
+
+// Four consecutive values from 16-byte aligned shared memory into v[at..].
+template <int N>
+__device__ __forceinline__ void load4(const float* p, float (&v)[N], int at) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[at] = a.x, v[at + 1] = a.y, v[at + 2] = a.z, v[at + 3] = a.w;
+}
+template <int N>
+__device__ __forceinline__ void load4(const double* p, double (&v)[N], int at) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  v[at] = a.x, v[at + 1] = a.y, v[at + 2] = b.x, v[at + 3] = b.y;
+}
+
+// Two CTAs an SM where the accumulators are float (at most 128 registers a
+// thread); double's need more.
+template <typename T, bool kInverse>
+__global__ void __launch_bounds__(kGenThreads, sizeof(typename Accum<T>::type) == 4 ? 2 : 1)
+gdn_general_kernel(const T* __restrict__ x, const T* __restrict__ beta,
+                   const T* __restrict__ gamma, T* __restrict__ out,
+                   long long rows, int C) {
+  using A = typename Accum<T>::type;
+  __shared__ __align__(16) A xs[kGenK][kGenXStride];  // x*x, [k][row]
+  __shared__ __align__(16) A gs[kGenK][kGenCols];     // gamma[k0 + k][n0 + n]
+
+  const int tid = threadIdx.x;
+  const int c0 = (tid % (kGenCols / kGenTC)) * kGenTC;  // this thread's channels
+  const int r0 = (tid / (kGenCols / kGenTC)) * kGenTR;  // and rows, in the tile
+  const long long row0 = static_cast<long long>(blockIdx.x) * kGenRows;
+  const int n0 = blockIdx.y * kGenCols;
+
+  A acc[kGenTR][kGenTC];
+#pragma unroll
+  for (int i = 0; i < kGenTR; ++i)
+#pragma unroll
+    for (int j = 0; j < kGenTC; ++j) acc[i][j] = A(0);
+
+  // Each thread stages 8 values of x*x and 4 of gamma a chunk; the next
+  // chunk's are loaded into registers while this one's products run. Half a
+  // warp reads 16 neighbouring channels of a row, a warp 32 of gamma's.
+  constexpr int kXPer = kGenRows * kGenK / kGenThreads;  // 8
+  constexpr int kGPer = kGenK * kGenCols / kGenThreads;  // 4
+  A xr[kXPer], gr[kGPer];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int q = 0; q < kXPer; ++q) {
+      const int i = tid + q * kGenThreads;
+      const long long row = row0 + i / kGenK;
+      const int k = k0 + i % kGenK;
+      xr[q] = (row < rows && k < C) ? to_acc(x[row * C + k]) : A(0);
+    }
+#pragma unroll
+    for (int q = 0; q < kGPer; ++q) {
+      const int i = tid + q * kGenThreads;
+      const int k = k0 + i / kGenCols, n = n0 + i % kGenCols;
+      gr[q] = (k < C && n < C) ? to_acc(gamma[static_cast<long long>(k) * C + n]) : A(0);
+    }
+  };
+  fetch(0);
+  for (int k0 = 0; k0 < C; k0 += kGenK) {
+#pragma unroll
+    for (int q = 0; q < kXPer; ++q) {
+      const int i = tid + q * kGenThreads;
+      xs[i % kGenK][i / kGenK] = xr[q] * xr[q];
+    }
+#pragma unroll
+    for (int q = 0; q < kGPer; ++q) {
+      const int i = tid + q * kGenThreads;
+      gs[i / kGenCols][i % kGenCols] = gr[q];
+    }
+    __syncthreads();
+    if (k0 + kGenK < C) fetch(k0 + kGenK);
+#pragma unroll 4
+    for (int k = 0; k < kGenK; ++k) {
+      A a[kGenTR], g[kGenTC];
+      load4(&xs[k][r0], a, 0);
+      load4(&xs[k][r0 + 4], a, 4);
+      load4(&gs[k][c0], g, 0);
+#pragma unroll
+      for (int i = 0; i < kGenTR; ++i)
+#pragma unroll
+        for (int j = 0; j < kGenTC; ++j) acc[i][j] += a[i] * g[j];
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int j = 0; j < kGenTC; ++j) {
+    const int n = n0 + c0 + j;
+    if (n >= C) break;
+    const A b = to_acc(beta[n]);
+#pragma unroll
+    for (int i = 0; i < kGenTR; ++i) {
+      const long long row = row0 + r0 + i;
+      if (row >= rows) break;
+      const A xv = to_acc(x[row * C + n]);
+      store(out + row * C + n, xv * norm_scale(acc[i][j] + b, kInverse));
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_general(const void* x, const void* beta, const void* gamma,
+                           void* out, long long rows, int channels, int inverse,
+                           cudaStream_t stream) {
+  const long long row_tiles = (rows + kGenRows - 1) / kGenRows;
+  if (row_tiles > INT_MAX) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(row_tiles),
+                  static_cast<unsigned>((channels + kGenCols - 1) / kGenCols));
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(beta);
+  const T* gt = static_cast<const T*>(gamma);
+  T* ot = static_cast<T*>(out);
+  if (inverse)
+    gdn_general_kernel<T, true><<<grid, kGenThreads, 0, stream>>>(xt, bt, gt, ot, rows, channels);
+  else
+    gdn_general_kernel<T, false><<<grid, kGenThreads, 0, stream>>>(xt, bt, gt, ot, rows, channels);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -435,6 +619,24 @@ int tpc_gdn_forward(const void* x, const void* beta, const void* gamma,
     case 128: return dispatch<128>(xf, bf, gf, of, rows, inverse, s);
     case 160: return dispatch<160>(xf, bf, gf, of, rows, inverse, s);
     case 192: return dispatch<192>(xf, bf, gf, of, rows, inverse, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// fused_gdn_general: any channels >= 1; dtype 0 float32, 1 float64, 2 float16,
+// 3 bfloat16 (x, beta and gamma all of it), each contiguous.
+int tpc_gdn_general_forward(const void* x, const void* beta, const void* gamma,
+                            void* out, long long rows, int channels, int inverse,
+                            int dtype, void* stream) {
+  if (channels < 1 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_general<float>(x, beta, gamma, out, rows, channels, inverse, s);
+    case 1: return launch_general<double>(x, beta, gamma, out, rows, channels, inverse, s);
+    case 2: return launch_general<__half>(x, beta, gamma, out, rows, channels, inverse, s);
+    case 3:
+      return launch_general<__nv_bfloat16>(x, beta, gamma, out, rows, channels, inverse, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,8 +1,13 @@
-"""Layers: SignalConv1D/2D/3D, GDN (with the fused kernel K1), the rounding
-modules, parameterizations and initializers."""
+"""Layers: SignalConv1D/2D/3D, GDN (with the fused kernels K1 and
+fused_gdn_general), the rounding modules, parameterizations and
+initializers."""
 
 from compression_tpu_torch.layers.gdn import GDN
-from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_reference
+from compression_tpu_torch.layers.gdn_kernel import (
+    fused_gdn,
+    fused_gdn_general,
+    fused_gdn_reference,
+)
 from compression_tpu_torch.layers.initializers import identity_kernel_init
 from compression_tpu_torch.layers.parameters import (
     GDNParameter,
@@ -45,5 +50,6 @@ __all__ = [
     "SoftRound",
     "SoftRoundConditionalMean",
     "fused_gdn",
+    "fused_gdn_general",
     "fused_gdn_reference",
 ]

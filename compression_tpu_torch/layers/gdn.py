@@ -7,15 +7,20 @@ For an input with channels ``i`` (the trailing axis)::
     y_i    = x_i * norm_i^(-epsilon)          (forward)
     y_i    = x_i * norm_i^(+epsilon)          (inverse / IGDN)
 
-The classic ``alpha=2, epsilon=0.5`` form always goes through the fused
-kernel K1, with or without gradients
-(:func:`compression_tpu_torch.layers.gdn_kernel.gdn_autograd`: the CUDA
-kernel on the card, its plain twin on the CPU, and a backward in plain
-torch ops); other exponents take plain torch ops. ``beta``/``gamma`` are stored raw, in sqrt space, and
-reparameterized by ``nonneg_apply`` at call time.
+The classic ``alpha=2, epsilon=0.5`` form always goes through a fused
+kernel, with or without gradients
+(:func:`compression_tpu_torch.layers.gdn_kernel.gdn_autograd`): on the
+card, K1 for float32 at a width it is built for (up to 192), the general
+kernel ``fused_gdn_general`` for any other width or dtype; their plain twin
+on the CPU; a backward in plain torch ops. Other exponents take plain torch
+ops. ``beta``/``gamma`` are stored raw, in sqrt space, and reparameterized
+by ``nonneg_apply`` at call time; with ``dtype`` set, x, beta and gamma are
+cast to it before the norm, as the JAX layer does.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -37,13 +42,16 @@ class GDN(nn.Module):
       epsilon: exponent on the norm pool (0.5 = square root).
       beta_min: lower bound for beta.
       gamma_init: gamma is initialized to ``gamma_init * I``.
+      dtype: if set, x, beta and gamma are cast to it before the norm (the
+        stored parameters keep their own); the output is in that dtype.
     """
 
     def __init__(self, channels: int, *, inverse: bool = False,
                  rectify: bool = False, alpha: float = 2.0,
                  epsilon: float = 0.5, beta_min: float = 1e-6,
-                 gamma_init: float = 0.1):
+                 gamma_init: float = 0.1, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.inverse = inverse
         self.rectify = rectify
         self.alpha = alpha
@@ -59,6 +67,8 @@ class GDN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         beta = parameters.nonneg_apply(self.beta, self.beta_min)
         gamma = parameters.nonneg_apply(self.gamma, 0.0)
+        if self.dtype is not None:
+            x, beta, gamma = (t.to(self.dtype) for t in (x, beta, gamma))
         if self.rectify:
             x = torch.relu(x)
         if self.alpha == 2.0 and self.epsilon == 0.5:

@@ -24,8 +24,10 @@ a time for the bitstream's sake.
 Layouts at the public boundary are the JAX package's: images NHWC uint8,
 latents ``(N, h, w, C)``. :func:`make_codec` keeps one codec per model
 and device; the codec reads its tables through the table disk cache
-(:mod:`compression_tpu_torch.models.codec_cache`). Not ported yet:
-``decompress_batch_jit``, ``SpatialCodec`` and the sharded transforms.
+(:mod:`compression_tpu_torch.models.codec_cache`).
+``Codec.decompress_batch_jit`` is the JAX package's single-program decode,
+its device segments captured as CUDA graphs. Not ported yet:
+``SpatialCodec`` and the sharded transforms.
 """
 
 from __future__ import annotations
@@ -48,9 +50,15 @@ from compression_tpu_torch.layers.priors import DeepFactorizedPrior
 from compression_tpu_torch.models import common
 from compression_tpu_torch.models.codec_base import HyperpriorCodec
 from compression_tpu_torch.models.codec_cache import cached
-from compression_tpu_torch.models.device_coding import StreamOverflow
+from compression_tpu_torch.models.device_coding import (
+    StreamOverflow,
+    decompress_batch_rans,
+    is_device_coded,
+    parse_host_blobs,
+)
 from compression_tpu_torch.ops.math_ops import lower_bound
 from compression_tpu_torch.parallel.pipeline import Work
+from compression_tpu_torch.util.graphs import Segment
 
 __all__ = [
     "Config",
@@ -251,7 +259,10 @@ class Codec(HyperpriorCodec):
       K3 and only the compressed y words come back (``coder="device"``);
     * :meth:`compress_iter` / :meth:`decompress_iter` double-buffer batches
       through :class:`~compression_tpu_torch.parallel.pipeline.Pipeline`;
-    * every stage is accounted in ``self.timer``.
+    * every stage is accounted in ``self.timer``;
+    * :meth:`decompress_batch_jit` is the single-program decode: the host
+      decodes z and y, and the device segments between them run as CUDA
+      graphs, one program a ``(n, zshape)`` key in ``self._jit_decoders``.
 
     Bit-exactness: what the decoder must reproduce (z_hat -> sigma -> rows)
     goes through one function shared by both paths, ``_rows``, which runs
@@ -267,6 +278,10 @@ class Codec(HyperpriorCodec):
       tables: optional ``{"side": CdfTables, "main": CdfTables}`` to use
         instead of building them from the model.
     """
+
+    def __init__(self, model: BMSHJ2018Model, device="cuda", tables=None):
+        super().__init__(model, device, tables)
+        self._jit_decoders: dict = {}
 
     # -- shared device functions ---------------------------------------------
 
@@ -307,6 +322,78 @@ class Codec(HyperpriorCodec):
             # bmshj2018 does (its mean-scale codecs raise instead).
             return self._finish_encode(
                 self._host_coder_work(w.sym, w.z_sym, w.rows, w.hw))
+
+    # -- the single-program decode (JAX's decompress_batch_jit) --------------
+    #
+    # The JAX package decodes a batch in ONE jitted program: z range-decode
+    # -> z_hat -> sigma -> CDF rows -> y range-decode -> synthesis -> uint8,
+    # the two range decodes host callbacks over fixed-capacity buffers
+    # (codec/jax_ops.py), whose capacity buckets are part of the program's
+    # key because XLA needs static shapes. Here the host decodes the strings
+    # as they are, so only the device segments between the two decodes
+    # have shapes: they are CUDA graphs, captured once per (n, zshape). The
+    # rows come from the codec's own _rows (one image at a time), so the
+    # bytes are decompress_batch's.
+
+    def decompress_batch_jit(self, blobs: list) -> np.ndarray:
+        """Same-size .tfci blobs through the single-program decoder;
+        device-coded blobs go to the rANS decode (K2), which is already one
+        device program."""
+        with self._on_device():
+            if is_device_coded(blobs[0]):
+                return decompress_batch_rans(self, blobs)
+            y_strings, z_strings, xshape, zshape = parse_host_blobs(blobs)
+            key = (len(blobs), tuple(int(v) for v in zshape))
+            program = self._jit_decoders.get(key)
+            if program is None:
+                program = self._jit_decoders[key] = _JitDecoder(self, *key)
+            x_hat = program(z_strings, y_strings)
+        return x_hat[:, : int(xshape[0]), : int(xshape[1]), :]
+
+
+class _JitDecoder:
+    """One decode program for ``n`` images of latent grid ``zshape``
+    (counterpart of the JAX ``Codec._build_jit_decoder``'s program): the
+    host decodes z, the first device segment (``_rows``) gives the CDF
+    rows, the host decodes y, the second (``_synthesize``) gives uint8
+    images. On the card both segments are CUDA graphs on the codec's
+    stream (:class:`~compression_tpu_torch.util.graphs.Segment`)."""
+
+    def __init__(self, codec: Codec, n: int, zshape):
+        self.codec, self.zshape = codec, tuple(zshape)
+        dev = codec.device
+        z_unit = (n,) + self.zshape + codec.side_em.prior_batch_shape
+        yshape = (n, zshape[0] * 4, zshape[1] * 4, codec.cfg.num_latents)
+        self.rows = Segment(codec._rows, [torch.empty(z_unit, device=dev)], codec.stream)
+        self.synth = Segment(lambda v: codec._synthesize(codec._apply_loc(v, None)),
+                             [torch.empty(yshape, dtype=torch.int32, device=dev)],
+                             codec.stream)
+
+    def _host_input(self, a: np.ndarray) -> torch.Tensor:
+        """A segment's argument: pinned on the card's host, so that the copy
+        into the static input does not wait for the whole stream."""
+        t = torch.from_numpy(a)
+        return t.pin_memory() if self.codec.device.type == "cuda" else t
+
+    def __call__(self, z_strings, y_strings) -> np.ndarray:
+        codec = self.codec
+        with codec.timer.stage("jit/code_z"):
+            # z_hat exactly as the encoder formed it: int symbols + f32 offset.
+            z_hat = codec.side_em.decompress(z_strings, self.zshape)
+        with codec.timer.stage("jit/rows"):
+            rows = codec._to_host(self.rows(self._host_input(z_hat)))
+            event = codec._event()
+            if event is not None:
+                event.synchronize()
+        with codec.timer.stage("jit/code_y"):
+            rows = rows.numpy()
+            values = codec.em.decode_symbols(y_strings, rows).reshape(rows.shape)
+        with codec.timer.stage("jit/synth"):
+            image = codec._to_host(self.synth(self._host_input(values)))
+            event = codec._event()
+            if event is not None:
+                event.synchronize()
+        return image.numpy()
 
 
 def make_codec(model: BMSHJ2018Model, device="cuda") -> Codec:

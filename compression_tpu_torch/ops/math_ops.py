@@ -59,6 +59,10 @@ class _UpperBound(torch.autograd.Function):
 
 
 def _as_bound(inputs: torch.Tensor, bound) -> torch.Tensor:
+    if isinstance(bound, (int, float)):
+        # A fill on the device, not a copy from the host: the bound ops can
+        # then be captured in a CUDA graph (the single-program decode).
+        return torch.full((), bound, dtype=inputs.dtype, device=inputs.device)
     return torch.as_tensor(bound, dtype=inputs.dtype, device=inputs.device)
 
 

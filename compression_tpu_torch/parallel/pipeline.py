@@ -1,5 +1,5 @@
 """Host/device coding pipeline (counterpart of
-``compression_tpu/parallel/pipeline.py`` ``Pipeline`` and
+``compression_tpu/parallel/pipeline.py`` ``Pipeline``, ``pipeline_map`` and
 ``staggered_map``).
 
 Double buffering: the main thread dispatches batch i+1's device stage
@@ -20,7 +20,7 @@ from typing import Callable, Iterable, Iterator, List, Optional
 
 import torch
 
-__all__ = ["Pipeline", "Work", "stream_context", "staggered_map"]
+__all__ = ["Pipeline", "Work", "pipeline_map", "stream_context", "staggered_map"]
 
 
 class Work:
@@ -68,6 +68,13 @@ class Pipeline:
                     yield inflight.pop(0).result()
             for fut in inflight:
                 yield fut.result()
+
+
+def pipeline_map(device_fn: Callable, host_fn: Callable, batches: Iterable,
+                 depth: int = 2) -> List:
+    """Runs ``batches`` through a :class:`Pipeline` (on the current stream)
+    and returns the results in order."""
+    return list(Pipeline(device_fn, host_fn, depth).run(batches))
 
 
 def staggered_map(fn: Callable, items: Iterable, depth: int = 2) -> Iterator:

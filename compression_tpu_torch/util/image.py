@@ -1,6 +1,7 @@
 """Image IO and quality metrics (counterpart of
 ``compression_tpu/util/image.py``): a PNG codec of its own (``zlib`` and
-``struct``: the card's machine has no PIL), host padding, and PSNR, SSIM
+``struct``: the card's machine has no PIL), padding (tensors, and NumPy
+stacks on the host), and PSNR, SSIM
 and MS-SSIM as plain torch functions on NHWC float tensors,
 differentiable, so the MS-SSIM loss trains on the card. A NumPy PSNR
 serves the host side.
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +27,9 @@ import torch.nn.functional as F
 __all__ = [
     "read_png",
     "write_png",
+    "pad_to_multiple",
     "pad_to_multiple_np",
+    "unpad",
     "psnr",
     "psnr_np",
     "ssim",
@@ -166,6 +169,29 @@ def read_png(path) -> np.ndarray:
             "rest, is not installed") from None
     with Image.open(path) as img:
         return np.asarray(img.convert("RGB"), np.uint8)
+
+
+def pad_to_multiple(x: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """Edge-pads the spatial axes -3 and -2 of a tensor of any dtype and
+    rank >= 3 up to multiples of ``multiple``; returns ``(x, (H, W))``. The
+    padding repeats the last row and column (an index gather with clamped
+    indices: ``F.pad``'s replicate mode refuses integer tensors and some
+    ranks)."""
+    h, w = x.shape[-3], x.shape[-2]
+    hp, wp = -h % multiple, -w % multiple
+    if hp:
+        rows = torch.arange(h + hp, device=x.device).clamp_(max=h - 1)
+        x = x.index_select(x.dim() - 3, rows)
+    if wp:
+        cols = torch.arange(w + wp, device=x.device).clamp_(max=w - 1)
+        x = x.index_select(x.dim() - 2, cols)
+    return x, (h, w)
+
+
+def unpad(x, shape: Sequence[int]):
+    """Cuts the spatial axes -3 and -2 back to ``shape`` = (H, W)."""
+    h, w = shape
+    return x[..., :h, :w, :]
 
 
 def pad_to_multiple_np(

@@ -155,8 +155,8 @@ def test_full_cycle_alias_name_roundtrip(cli_env):
 
 
 def test_flags_not_ported_raise(cli_env):
-    """--spatial (giant-image mode) and --jit (single-program decode) say
-    they are not ported, before any other work, and run no other path."""
+    """--spatial (giant-image mode) says it is not ported, before any other
+    work, and runs no other path."""
     tmp_path, png, _ = cli_env
     tfci = str(tmp_path / "x.tfci")
     with pytest.raises(SystemExit, match="--spatial is not ported"):
@@ -164,10 +164,26 @@ def test_flags_not_ported_raise(cli_env):
     assert not os.path.exists(tfci)
     with open(tfci, "wb") as f:
         f.write(b"")
-    with pytest.raises(SystemExit, match="--jit is not ported"):
-        _main(["decompress", tfci, "--jit"])
     with pytest.raises(SystemExit, match="--spatial is not ported"):
         _main(["decompress", tfci, "--spatial", "2"])
+
+
+def test_jit_decompress(cli_env):
+    """--jit (the single-program decode) writes the PNG a plain decompress
+    writes; another family than bmshj2018 gets the JAX CLI's SystemExit."""
+    tmp_path, png, img = cli_env
+    tfci = str(tmp_path / "h.tfci")
+    plain, jit = str(tmp_path / "plain.png"), str(tmp_path / "jit.png")
+    assert _main(["compress", "bmshj2018", png, tfci, "--allow-random"]) == 0
+    assert _main(["decompress", tfci, plain, "--allow-random"]) == 0
+    assert _main(["decompress", tfci, jit, "--allow-random", "--jit"]) == 0
+    assert open(jit, "rb").read() == open(plain, "rb").read()
+    assert image_util.read_png(jit).shape == img.shape
+    other = str(tmp_path / "f.tfci")
+    assert _main(["compress", "bls2017", png, other, "--allow-random"]) == 0
+    with pytest.raises(SystemExit, match="--jit decode is implemented for the "
+                                         "bmshj2018 family; 'bls2017' is bls2017"):
+        _main(["decompress", other, str(tmp_path / "x.png"), "--allow-random", "--jit"])
 
 
 def test_runs_on_cuda_unless_told_otherwise(cli_env):

@@ -1,6 +1,8 @@
 """Tests of the port that need the card: the CUDA kernels (K1 fused GDN at
-any width up to 192, K3/K2 rANS encode/decode) against their plain twins, K1
-under autograd, the codecs on the card (bmshj2018 with either coder,
+any width up to 192, the general GDN kernel at any width and dtype, K3/K2
+rANS encode/decode) against their plain twins, K1 and the general kernel
+under autograd, the single-program decode's CUDA graphs and their launch
+counts, the codecs on the card (bmshj2018 with either coder,
 bls2017 in both archs, mbt2018 with either coder, b2018 at 192 filters,
 ms2020 and HiFiC at full width with either coder), the tfci CLI against
 the Codec API, training steps (HiFiC's joint G/D step among them), and the
@@ -22,7 +24,8 @@ import torch
 from compression_tpu_torch import convert
 from compression_tpu_torch.codec import pmf_to_quantized_cdf, rans, rans_ref
 from compression_tpu_torch.entropy_models.continuous_base import CdfTables
-from compression_tpu_torch.layers import fused_gdn, fused_gdn_reference, parameters
+from compression_tpu_torch.layers import (fused_gdn, fused_gdn_general, fused_gdn_reference,
+                                          parameters)
 from compression_tpu_torch.layers.gdn_kernel import FusedGDN
 from compression_tpu_torch.entropy_models import continuous_batched, continuous_indexed
 from compression_tpu_torch.models import (b2018, bls2017, bmshj2018, common, hific, mbt2018,
@@ -177,6 +180,157 @@ def test_codec_on_card_round_trip_matches_cpu(cuda):
     # The CPU codec's own round trip lands within one level.
     cpu_out = cpu.decompress_batch(cpu.compress_batch(images))
     assert np.abs(cpu_out.astype(np.int16) - out.astype(np.int16)).max() <= 1
+
+
+# -- fused_gdn_general: GDN at any width and dtype ------------------------------
+
+# Significand bits of each storage type: two ulps of the twin's output
+# bound a low-precision result (both accumulate the norm in float32 and
+# round once, in another order).
+_BITS = {torch.bfloat16: 8, torch.float16: 11}
+
+
+def _assert_general_close(got, want):
+    if want.dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    elif want.dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    else:
+        g, w = got.double(), want.double()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -60)))
+                         - (_BITS[want.dtype] - 1))
+        assert ((g - w).abs() / ulp).max().item() <= 2
+
+
+@pytest.mark.parametrize("c", [224, 256, 320, 1, 33, 193])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_general_kernel_matches_twin(cuda, c, dtype, inverse):
+    x, beta, gamma = (t.to(dtype) for t in _inputs(c * 3 + inverse, 4551, c, cuda))
+    before = fused_gdn_general.launches
+    with torch.inference_mode():
+        got = fused_gdn_general(x, beta, gamma, inverse)
+        torch.cuda.synchronize()
+        want = fused_gdn_reference(x, beta, gamma, inverse)
+    assert fused_gdn_general.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _assert_general_close(got, want)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_general_kernel_rows_do_not_depend_on_their_tile(cuda, inverse):
+    x, beta, gamma = _inputs(6, 70_000, 320, cuda)
+    with torch.inference_mode():
+        full = fused_gdn_general(x, beta, gamma, inverse)
+        for lo, hi in ((0, 1), (31, 97), (69_990, 70_000)):
+            alone = fused_gdn_general(x[lo:hi].contiguous(), beta, gamma, inverse)
+            assert torch.equal(alone, full[lo:hi]), (lo, hi)
+
+
+def test_general_kernel_rejects_what_it_cannot_take(cuda):
+    x, beta, gamma = _inputs(2, 64, 256, cuda)
+    with torch.inference_mode():
+        with pytest.raises(TypeError, match="beta is torch.float64"):
+            fused_gdn_general(x, beta.double(), gamma)
+        with pytest.raises(ValueError, match="contiguous"):
+            fused_gdn_general(x, beta, gamma.t())
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_gdn_general(x.requires_grad_(), beta, gamma)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gdn_layer_at_256_on_card_matches_cpu(cuda, dtype, inverse):
+    """The GDN layer at C = 256 (the general kernel's route) under autograd:
+    output and the gradients of x and the raw parameters on the card
+    against the CPU's, from the same weights and inputs."""
+    from compression_tpu_torch.layers import GDN
+
+    gen = torch.Generator().manual_seed(256 + inverse)
+    x = torch.randn(2, 24, 16, 256, generator=gen)
+    w = torch.randn(2, 24, 16, 256, generator=gen)
+    results = []
+    for device in ("cpu", cuda):
+        layer = GDN(256, inverse=inverse, dtype=None if dtype == torch.float32 else dtype)
+        with torch.no_grad():
+            layer.gamma.add_(0.02 * torch.rand(256, 256, generator=torch.Generator().manual_seed(1)))
+        layer.to(device)
+        xd = x.to(device, dtype).clone().requires_grad_()
+        before = fused_gdn_general.launches, fused_gdn.launches
+        y = layer(xd)
+        torch.sum(y * w.to(device, dtype)).backward()
+        if device != "cpu":
+            assert (fused_gdn_general.launches, fused_gdn.launches) == (before[0] + 1, before[1])
+        results.append([t.detach().cpu() for t in (y, xd.grad, layer.beta.grad, layer.gamma.grad)])
+    tol = TOL if dtype == torch.float32 else dict(rtol=1e-12, atol=1e-12)
+    for got, want in zip(results[1], results[0]):
+        torch.testing.assert_close(got, want, rtol=tol["rtol"],
+                                   atol=tol["atol"] * want.abs().max().item())
+
+
+def _tiny_bmshj2018(cuda):
+    torch.manual_seed(0)
+    cfg = bmshj2018.Config(num_filters=32, num_latents=32, num_hyperlatents=32)
+    cpu_model = bmshj2018.BMSHJ2018Model(cfg)
+    gpu_model = bmshj2018.BMSHJ2018Model(cfg)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    return bmshj2018.Codec(gpu_model, device=cuda)
+
+
+def test_jit_decode_on_card_matches_decompress_batch(cuda):
+    codec = _tiny_bmshj2018(cuda)
+    rng = np.random.RandomState(1)
+    images = (rng.rand(3, 96, 130, 3) * 255).astype(np.uint8)
+    blobs = codec.compress_batch(images)
+    want = codec.decompress_batch(blobs)
+    for _ in range(2):
+        np.testing.assert_array_equal(codec.decompress_batch_jit(blobs), want)
+    assert len(codec._jit_decoders) == 1
+    program = next(iter(codec._jit_decoders.values()))
+    assert program.rows.graph is not None and program.synth.graph is not None
+    np.testing.assert_array_equal(codec.decompress_batch_jit(blobs[1:2])[0], want[1])
+    other = (rng.rand(1, 64, 64, 3) * 255).astype(np.uint8)
+    blob = codec.compress_batch(other)
+    np.testing.assert_array_equal(codec.decompress_batch_jit(blob), codec.decompress_batch(blob))
+    assert len(codec._jit_decoders) == 3
+    device_blobs = codec.compress_batch(images, coder="device")
+    before = rans.rans_decode.launches
+    np.testing.assert_array_equal(codec.decompress_batch_jit(device_blobs),
+                                  codec.decompress_batch(device_blobs))
+    assert rans.rans_decode.launches == before + 2
+
+
+def test_jit_decode_counts_kernel_launches_on_every_replay(cuda):
+    """A warm jit decode replays two CUDA graphs: the synthesis' three IGDN
+    launch K1 three times, and the counts say so on every replay; a cold
+    call counts its eager warm-up and its first replay, not the capture."""
+    codec = _tiny_bmshj2018(cuda)
+    blobs = codec.compress_batch((np.random.RandomState(2).rand(2, 64, 96, 3) * 255)
+                                 .astype(np.uint8))
+    before = fused_gdn.launches
+    codec.decompress_batch_jit(blobs)  # warm-up (3) + replay (3)
+    assert fused_gdn.launches == before + 6
+    program = next(iter(codec._jit_decoders.values()))
+    assert program.synth.replay_launches == {fused_gdn: 3}
+    assert program.rows.replay_launches == {}
+    for _ in range(3):
+        before = fused_gdn.launches, fused_gdn_general.launches
+        codec.decompress_batch_jit(blobs)
+        assert (fused_gdn.launches, fused_gdn_general.launches) == (before[0] + 3, before[1])
+    # The card's own trace of a warm call shows the kernels the counts say.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = fused_gdn.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        codec.decompress_batch_jit(blobs)
+        torch.cuda.synchronize()
+    names = [k.name() for k in prof.profiler.kineto_results.events()
+             if k.device_type() == DeviceType.CUDA]
+    k1 = sum("gdn_kernel" in n and "gdn_general_kernel" not in n for n in names)
+    assert k1 == fused_gdn.launches - before == 3
+    assert not any("gdn_general_kernel" in n for n in names)
 
 
 # -- K3 / K2: the rANS kernels -------------------------------------------------
