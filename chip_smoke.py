@@ -13,7 +13,9 @@ of a checkout. Phases, each fatal on failure:
    math pinned (no TF32, deterministic cuDNN);
 2. build: the CUDA kernels gdn.cu (K1 and the general GDN kernel) and
    rans.cu (nvcc, one process each) and the range coder (g++), all in
-   parallel;
+   parallel; each kernel's registers and spills (ptxas), and the built
+   gdn.cu's SASS (cuobjdump): K1's instantiations must hold HGMMA, the
+   general kernel's HMMA (float32, float16, bfloat16) or DMMA (float64);
 3. kernels: K1 (fused GDN, 3xTF32 on the tensor cores) against its plain
    twin at the six shapes the main path gives it (batch 8 of 768x512:
    384x256, 192x128 and 96x64 rows of C=192, forward and inverse) and on
@@ -218,14 +220,15 @@ of a checkout. Phases, each fatal on failure:
        ``profile_device`` pass of each (device busy and idle, no claim),
        in which the K1 kernels the card's trace shows must equal the
        counted launches of that same call;
-    b. the general GDN kernel (``fused_gdn_general``) against its twin at
-       the rows of the first GDN layer (8 x 384 x 256): float32 at C = 224,
-       256 and 320 within K1's 2e-5, float64 at C = 256 within 1e-12,
-       bfloat16 at C = 192 within two bf16 ulps, both directions, each
-       timed against its byte bound and its tensor-core bound (3xTF32 for
-       float32, FP64 tensor cores for float64, bf16 for bfloat16); and at
-       the six calls of 16c's round trip, with ``torch.addmm`` plus the
-       elementwise ops as a yardstick;
+    b. the general GDN kernel (``fused_gdn_general``, on the tensor
+       cores) against its twin at the rows of the first GDN layer (8 x 384
+       x 256): float32 at C = 224, 256 and 320 within K1's 2e-5, float64 at
+       C = 256 within 1e-12, bfloat16 and float16 at C = 192 within two
+       ulps, both directions, each timed beside its twin and its yardstick
+       (``torch.addmm`` plus the elementwise ops in the row's dtype) against
+       its byte bound and its tensor-core bound, units printed (3xTF32 for
+       float32, the FP64 tensor cores for float64, 1xTF32 for the 16-bit
+       types); and at the six calls of 16c's round trip;
     c. a seeded bmshj2018 at 320 filters: a quantized step of 2 crops on
        the card against the CPU (8b's tolerances), the launches of a
        training step (the general kernel 6, K1 0), the codec's round trip
@@ -398,6 +401,51 @@ def phase_build() -> None:
             log(f"  ptxas {src} {line}")
     log(f"  gdn.cu at C=192: {gdn_kernel._smem_bytes(192)} bytes of dynamic shared "
         "memory a CTA (gamma slice hi+lo, two x stages)")
+    for line in check_tensor_core_sass(cuda_build.sass("gdn.cu")):
+        log(f"  sass gdn.cu {line}")
+
+
+# The tensor-core instruction each GDN kernel must compile to, by the
+# template argument that opens its mangled name: K1 (gdn_kernel<C, inverse>)
+# wgmma, HGMMA; the general kernel's TMA route (gdn_general_tma_kernel<NS,
+# inverse>, float32) wgmma, HGMMA; its other route (gdn_general_kernel<T,
+# V, inverse>, V the elements a load: 16 bytes' worth or 1) mma.sync, HMMA
+# for float, __half and __nv_bfloat16 (TF32 products), DMMA for double.
+GDN_SASS = {"gdn_kernelILi": ("K1", "HGMMA"),
+            "gdn_general_kernelIf": ("general float32", "HMMA"),
+            "gdn_general_kernelI6__half": ("general float16", "HMMA"),
+            "gdn_general_kernelI13__nv_bfloat16": ("general bfloat16", "HMMA"),
+            "gdn_general_kernelId": ("general float64", "DMMA"),
+            "gdn_general_tma_kernelILi": ("general float32, TMA", "HGMMA")}
+
+
+# Instantiations of each: K1 six widths, the TMA route three slice widths,
+# both directions; the rest 4 (two load widths, both directions).
+GDN_INSTANTIATIONS = {"K1": 12, "general float32, TMA": 6}
+
+
+def check_tensor_core_sass(sass: str) -> list:
+    """Each GDN kernel instantiation in ``sass`` (``cuobjdump -sass`` of the
+    built gdn.cu) runs its products on the tensor cores: it must contain the
+    instruction of :data:`GDN_SASS`, and every entry there must have both
+    directions built (and for the general kernel both load widths).
+    Returns one line a kernel kind: instantiations and tensor-core
+    instructions counted."""
+    found = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, _, body = block.partition("\n")
+        for prefix, (kind, op) in GDN_SASS.items():
+            if prefix in name:
+                count = len(re.findall(rf"\b{op}\b", body))
+                if not count:
+                    raise AssertionError(f"sass: {name} ({kind}) has no {op}")
+                found.setdefault(kind, []).append(count)
+    missing = [kind for kind, _ in GDN_SASS.values()
+               if len(found.get(kind, ())) != GDN_INSTANTIATIONS.get(kind, 4)]
+    if missing:
+        raise AssertionError(f"sass: instantiations missing for {missing}: {found}")
+    return [f"{kind}: {len(found[kind])} kernels, {op} {found[kind]}"
+            for kind, op in GDN_SASS.values()]
 
 
 def ptxas_summary(build_log: str) -> list:
@@ -409,7 +457,8 @@ def ptxas_summary(build_log: str) -> list:
         if entry:
             mangled = entry.group(1)
             base = re.search(r"\d([a-z][a-z_]*_kernel)[IE]", mangled)
-            args = re.findall(r"L[ib](\d+)E", mangled)
+            args = re.findall(r"_kernelI(f|d|6__half|13__nv_bfloat16)", mangled)
+            args += re.findall(r"L[ib](\d+)E", mangled)
             name = (base.group(1) if base else mangled) + (f"<{','.join(args)}>" if args else "")
         elif "spill" in line:
             spills = line.strip()
@@ -916,7 +965,8 @@ def kind_of(kernel: str, ops: list) -> str:
     forward, traced by a ``record_function``; Adam; K1's backward;
     convolutions backward and forward)."""
     low, chain = kernel.lower(), " ".join(ops)
-    for kind, parts in (("gdn_general", ("gdn_general_kernel",)), ("K1", ("gdn_kernel",)),
+    for kind, parts in (("gdn_general", ("gdn_general_kernel", "gdn_general_tma_kernel")),
+                        ("K1", ("gdn_kernel",)),
                         ("K3", ("rans_fields", "rans_encode")),
                         ("K2", ("rans_decode",)), ("copies", ("memcpy", "memset"))):
         if any(part in low for part in parts):
@@ -2918,9 +2968,8 @@ def phase_library(card: str) -> dict:
 
 # Phase 16: the single-program decode and GDN at any width and dtype.
 PEAK_FP64_FLOPS = 67e12   # H100 SXM data sheet, fp64 on the tensor cores (DMMA, dense)
-PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, bf16/fp16 on the tensor cores (dense)
 WIDE_FILTERS = 320       # 16c: a bmshj2018 wider than K1's 192 channels
-BF16_ULPS = 2            # 16b: bfloat16 within two ulps of the twin's output
+LOW_ULPS = 2             # 16b: bfloat16 and float16 within two ulps of the twin's output
 
 
 def median_ms(fn, reps: int) -> float:
@@ -3036,44 +3085,47 @@ def phase_jit_decode(card: str, reps: int) -> dict:
 def general_bounds_ms(rows: int, c: int, dtype) -> dict:
     """Least times of one general-kernel call: x read and y written once,
     beta and gamma read once, over the HBM rate; and its rows x C x C
-    multiply-adds on the fastest units that keep the tolerance: float32 as
-    the three TF32 products of 3xTF32 (K1's route, within 2e-5) over the
-    TF32 rate, float64 over the FP64 tensor cores' rate, bfloat16 and
-    float16 over their tensor-core rate (a float accumulator; one product
-    rounds x*x to the storage type, half an ulp)."""
+    multiply-adds on the tensor cores, as the kernel takes them within each
+    tolerance (:data:`GENERAL_OPS_UNITS`): float32 as the three TF32
+    products of 3xTF32 over the TF32 rate, float64 over the FP64 tensor
+    cores' rate, bfloat16 and float16 as one TF32 product (x*x squared in
+    float and rounded to TF32, gamma exact in TF32) over the TF32 rate."""
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * rows * c + c * c + c) * size
     flops = 2 * rows * c * c
     ops_ms = 1e3 * {torch.float32: 3 * flops / PEAK_TF32_FLOPS,
-                    torch.float64: flops / PEAK_FP64_FLOPS}.get(dtype, flops / PEAK_BF16_FLOPS)
+                    torch.float64: flops / PEAK_FP64_FLOPS}.get(dtype, flops / PEAK_TF32_FLOPS)
     return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES, "ops": ops_ms}
 
 
-GENERAL_OPS_UNITS = {torch.float32: "3xTF32", torch.float64: "fp64 tensor cores"}
+GENERAL_OPS_UNITS = {torch.float32: "3xTF32", torch.float64: "FP64 tensor cores",
+                     torch.bfloat16: "1xTF32", torch.float16: "1xTF32"}
+SIGNIFICANT_BITS = {torch.bfloat16: 8, torch.float16: 11}
 
 
 def general_close(got, want) -> float:
     """The general kernel against its twin: float32 within K1's 2e-5,
-    float64 within 1e-12, bfloat16 within two ulps of the twin's output.
-    Returns the largest absolute error."""
-    if want.dtype == torch.bfloat16:
+    float64 within 1e-12, bfloat16 and float16 within two ulps of the twin's
+    output (below the smallest normal, the subnormal spacing). Returns the
+    largest absolute error."""
+    if want.dtype in SIGNIFICANT_BITS:
         g, w = got.double(), want.double()
-        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -60))) - 7)
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(torch.finfo(want.dtype).tiny)))
+                         - (SIGNIFICANT_BITS[want.dtype] - 1))
         worst = ((g - w).abs() / ulp).max().item()
-        if worst > BF16_ULPS:
-            raise AssertionError(f"16b: bfloat16 off its twin by {worst} ulps")
+        if worst > LOW_ULPS:
+            raise AssertionError(f"16b: {want.dtype} off its twin by {worst} ulps")
     else:
         tol = 1e-12 if want.dtype == torch.float64 else GDN_TOL
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     return (got.double() - want.double()).abs().max().item()
 
 
-def time_general(label: str, x, beta, gamma, inverse: bool, reps: int,
-                 yardstick: bool = False) -> dict:
-    """One general-kernel call against its twin: its error, kernel and twin
-    ms (in turns: twin, kernel, kernel, twin), the bounds, and with
-    ``yardstick`` the ms of ``torch.addmm`` plus the elementwise ops (K1's
-    yardstick, never called by the port)."""
+def time_general(label: str, x, beta, gamma, inverse: bool, reps: int) -> dict:
+    """One general-kernel call against its twin: its error, the ms of the
+    twin, the kernel and the library yardstick (``torch.addmm`` plus the
+    elementwise ops in x's dtype, as K1's; never called by the port), in
+    turns (twin, kernel, yardstick, kernel, twin), and the bounds."""
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn_general, fused_gdn_reference
 
     def library(x, beta, gamma, inverse):
@@ -3087,30 +3139,29 @@ def time_general(label: str, x, beta, gamma, inverse: bool, reps: int,
         sync()
         err = general_close(got, want)
         runs = {"plain_ms": [], "ms": [], "library_ms": []}
-        order = [("plain_ms", fused_gdn_reference), ("ms", fused_gdn_general)]
-        if yardstick:
-            order.append(("library_ms", library))
-        for key, fn in order + [("ms", fused_gdn_general), ("plain_ms", fused_gdn_reference)]:
+        for key, fn in (("plain_ms", fused_gdn_reference), ("ms", fused_gdn_general),
+                        ("library_ms", library), ("ms", fused_gdn_general),
+                        ("plain_ms", fused_gdn_reference)):
             runs[key].append(cuda_ms(lambda: fn(x, beta, gamma, inverse), reps))
-    times = {k: sum(v) / len(v) if v else None for k, v in runs.items()}
+    times = {k: sum(v) / len(v) for k, v in runs.items()}
     bounds = general_bounds_ms(rows, c, x.dtype)
     bound = max(bounds.values())
+    units = GENERAL_OPS_UNITS[x.dtype]
     log(f"  16b {label:28s} rows {rows:7d} C {c}: max_abs_err {err:.3e}; kernel "
-        f"{times['ms']:.4f} ms, twin {times['plain_ms']:.4f} ms"
-        + (f", addmm + elementwise {times['library_ms']:.4f} ms" if yardstick else "")
-        + f"; bound {bounds['bytes']:.4f} ms (bytes), {bounds['ops']:.4f} ms "
-        f"({GENERAL_OPS_UNITS.get(x.dtype, 'bf16 tensor cores')}); "
-        f"{100 * bound / times['ms']:.1f}% of bound")
+        f"{times['ms']:.4f} ms, twin {times['plain_ms']:.4f} ms, addmm + elementwise "
+        f"{times['library_ms']:.4f} ms; bound {bounds['bytes']:.4f} ms (bytes), "
+        f"{bounds['ops']:.4f} ms ({units}); {100 * bound / times['ms']:.1f}% of bound "
+        f"({'bytes' if bounds['bytes'] >= bounds['ops'] else units})")
     return dict(max_abs_err=err, bound_ms=bound, bytes_ms=bounds["bytes"],
-                ops_ms=bounds["ops"], **times)
+                ops_ms=bounds["ops"], ops_units=units, **times)
 
 
 def phase_general_kernel(model, reps: int) -> dict:
     """16b: the general GDN kernel against its twin on the card, at the rows
     of the first GDN layer of the batch (8 x 384 x 256): float32 at C = 224,
-    256 and 320, float64 at C = 256, bfloat16 at C = 192; and at the six
-    calls of the 320-filter model's round trip (16c), whose sum is its line
-    in the kernels JSON."""
+    256 and 320, float64 at C = 256, bfloat16 and float16 at C = 192; and at
+    the six calls of the 320-filter model's round trip (16c), whose sum is
+    its line in the kernels JSON."""
     from compression_tpu_torch.layers import parameters
 
     gen = torch.Generator(device=DEVICE).manual_seed(16)
@@ -3125,7 +3176,7 @@ def phase_general_kernel(model, reps: int) -> dict:
 
     checks = {}
     for c, dtype in ((224, torch.float32), (256, torch.float32), (320, torch.float32),
-                     (256, torch.float64), (192, torch.bfloat16)):
+                     (256, torch.float64), (192, torch.bfloat16), (192, torch.float16)):
         for inverse in (False, True):
             label = f"{str(dtype).split('.')[-1]} C={c} {'inverse' if inverse else 'forward'}"
             checks[label] = time_general(label, *inputs(rows, c, dtype), inverse, reps)
@@ -3138,7 +3189,7 @@ def phase_general_kernel(model, reps: int) -> dict:
             beta = parameters.nonneg_apply(layer.beta, layer.beta_min).to(DEVICE)
             gamma = parameters.nonneg_apply(layer.gamma, 0.0).to(DEVICE)
         x = torch.randn(n, gamma.shape[0], device=DEVICE, generator=gen)
-        r = time_general(f"path {label}", x, beta, gamma, inverse, reps, yardstick=True)
+        r = time_general(f"path {label}", x, beta, gamma, inverse, reps)
         max_err = max(max_err, r["max_abs_err"])
         for k in totals:
             totals[k] += r[k]

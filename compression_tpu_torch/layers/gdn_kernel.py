@@ -29,7 +29,12 @@ kernel does.
 
 K1 runs the product on the tensor cores in 3xTF32 (``wgmma``, x tiles by
 TMA); on an H100 it is bound by bytes. The general kernel runs it on the
-CUDA cores and is bound by operations above C ~ 80 (see the notes in
+tensor cores too: float32 rows TMA can stream (C a multiple of 4, x and y
+16-byte aligned) as split-TF32 ``wgmma`` (3xTF32's products and lo*lo)
+with x streamed in K blocks, everything else through warp-level
+``mma.sync``: 3xTF32 in float32, one TF32 product in float16 and bfloat16
+(x squared in float), DMMA in float64. It is bound by operations in
+float32 and float64 and by bytes in the 16-bit types (see the notes in
 ``csrc/gdn.cu``).
 """
 
@@ -241,7 +246,10 @@ def fused_gdn_general(x, beta, gamma, inverse: bool = False):
     CPU tensors run :func:`fused_gdn_reference`; CUDA tensors launch
     ``csrc/gdn.cu``'s general kernel once (the norm in float32, float64 for
     float64; ``y`` in x's dtype), or raise if it cannot. There is no
-    fallback between the two.
+    fallback between the two. On the card the products run on the tensor
+    cores: float32 as split TF32 (within 2e-5 of the twin), float64 on DMMA
+    (IEEE products, within 1e-12), float16 and bfloat16 as one TF32 product
+    of x*x squared in float (within two ulps of y's type).
     """
     if x.device.type == "cpu":
         return fused_gdn_reference(x, beta, gamma, inverse)

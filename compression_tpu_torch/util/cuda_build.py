@@ -19,7 +19,7 @@ import subprocess
 import threading
 from typing import Callable, Dict
 
-__all__ = ["ARCH", "CSRC", "build", "build_logs", "load"]
+__all__ = ["ARCH", "CSRC", "build", "build_logs", "load", "sass"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -29,14 +29,18 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str:
     for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name),
+        shutil.which(name),
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise RuntimeError(f"{name} not found (set CUDA_HOME or put {name} on PATH)")
+
+
+def _nvcc() -> str:
+    return _tool("nvcc")
 
 
 def build(source: str) -> pathlib.Path:
@@ -75,3 +79,12 @@ def load(source: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
             declare(lib)
             _libs[source] = lib
     return _libs[source]
+
+
+def sass(source: str) -> str:
+    """The SASS of ``csrc/<source>``'s built library (``cuobjdump -sass``):
+    each kernel as a ``Function : <mangled name>`` line and its
+    instructions."""
+    res = subprocess.run([_tool("cuobjdump"), "-sass", str(build(source))],
+                         capture_output=True, text=True, check=True)
+    return res.stdout

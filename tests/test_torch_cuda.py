@@ -196,13 +196,18 @@ def _assert_general_close(got, want):
     elif want.dtype == torch.float64:
         torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
     else:
+        # An ulp of the output type; below its smallest normal, the
+        # subnormal spacing.
         g, w = got.double(), want.double()
-        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -60)))
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(torch.finfo(want.dtype).tiny)))
                          - (_BITS[want.dtype] - 1))
         assert ((g - w).abs() / ulp).max().item() <= 2
 
 
-@pytest.mark.parametrize("c", [224, 256, 320, 1, 33, 193])
+# Widths past every tile edge of the kernel (mma tiles of 8 and 16, chunks
+# of 16 and 32 input channels, slices of 128 output channels), on 4551 rows,
+# a multiple of no row tile.
+@pytest.mark.parametrize("c", [224, 256, 320, 1, 33, 193, 2, 4, 31, 64, 255, 512, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("inverse", [False, True])
@@ -218,14 +223,38 @@ def test_general_kernel_matches_twin(cuda, c, dtype, inverse):
     _assert_general_close(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 @pytest.mark.parametrize("inverse", [False, True])
-def test_general_kernel_rows_do_not_depend_on_their_tile(cuda, inverse):
-    x, beta, gamma = _inputs(6, 70_000, 320, cuda)
+def test_general_kernel_rows_do_not_depend_on_their_tile(cuda, dtype, inverse):
+    x, beta, gamma = (t.to(dtype) for t in _inputs(6, 70_000, 320, cuda))
     with torch.inference_mode():
         full = fused_gdn_general(x, beta, gamma, inverse)
         for lo, hi in ((0, 1), (31, 97), (69_990, 70_000)):
             alone = fused_gdn_general(x[lo:hi].contiguous(), beta, gamma, inverse)
             assert torch.equal(alone, full[lo:hi]), (lo, hi)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.float16])
+def test_general_kernel_replays_in_a_cuda_graph(cuda, dtype):
+    """Captured in a CUDA graph (``util.graphs.Segment``, as the jit decode
+    captures it), the kernel replays to the bytes of an eager call, and each
+    replay counts its one launch."""
+    from compression_tpu_torch.util.graphs import Segment
+
+    x, beta, gamma = (t.to(dtype) for t in _inputs(7, 4551, 320, cuda))
+    stream = torch.cuda.Stream()
+    segment = Segment(lambda v: fused_gdn_general(v, beta, gamma), [x], stream=stream)
+    with torch.no_grad():
+        eager = fused_gdn_general(x, beta, gamma)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            segment(x)  # warm-up, capture, first replay
+            before = fused_gdn_general.launches
+            replayed = segment(x)
+        torch.cuda.synchronize()
+    assert segment.replay_launches == {fused_gdn_general: 1}
+    assert fused_gdn_general.launches == before + 1
+    assert torch.equal(replayed, eager)
 
 
 def test_general_kernel_rejects_what_it_cannot_take(cuda):
