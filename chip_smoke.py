@@ -2,7 +2,8 @@
 the host coder and with the device (rANS) coder, its training, the other
 families at full width (bls2017, bmshj2018-factorized, mbt2018-mean, b2018,
 ms2020-cc10, HiFiC), the tfci CLI, the rest of the library, the
-single-program decode and GDN at any width and dtype.
+single-program decode, GDN at any width and dtype, and the multi-device
+layer on shards of the one card.
 
     python3 chip_smoke.py [--batches N] [--reps N]
 
@@ -236,10 +237,37 @@ of a checkout. Phases, each fatal on failure:
        batch-1 decode equal to the batch-8 decode), and its jit decode
        (general 3 a warm call, held against the card's trace).
 
+17. the multi-device layer on meshes of 1 and 4 shards of the one card
+    (``parallel.data_parallel.Mesh`` with the card repeated):
+    a. data-parallel training of bmshj2018 from the checkpoint at
+       TrainConfig's 8 crops of 256x256: the 4-shard quantized step's loss,
+       gradients and updated params within rtol 1e-5, atol 1e-6 of the mean of the
+       per-shard gradients built from the one-device pieces, the mesh of one
+       within rtol 1e-6 of ``train_step``; ms a step with noise, K1 6 a
+       shard, device busy and idle (``profile_device``); then hific-mi's
+       joint DP step at 8x256x256 (synthetic LPIPS), finite losses and D's
+       spectral-norm state equal (1e-6) to the one-device step's, ms a step;
+    c. bmshj2018's SpatialCodec from the checkpoint on one 3072x2048
+       structured image at 1 and 4 shards: PSNR above 25 dB, a second decode
+       equal to the first, K1 3 a shard a pass, the sharded y, z, sigma and
+       x_hat within 1e-4 of the largest entry of the dense model's, compress
+       and decompress ms, blobs byte-equal across 1 shard, 4 shards and the
+       dense codec (printed, not held); bls2017, mbt2018-mean, ms2020-cc10
+       and hific-mi from the seed on one 768x512 image at 4 shards: the
+       round trip decodes, y within 1e-4 of the dense, its ms on a first
+       call and on the next;
+    d. ShardedCharmCodec over 1 and 4 shards, ms2020-cc10 from the seed on
+       the 8 structured images, host- and device-coded: byte-equal to
+       ``Codec.decompress_batch`` (K2 10 a shard on device-coded blobs), and
+       a ragged batch of 7;
+    and ``tfci compress/decompress --spatial 1`` on the checkpoint (K1 3
+    each, PSNR above 25 dB); ``--spatial 2`` exits naming the device count.
+
 Then one JSON line with every kernel's numbers (and its launches on every
 path; the general kernel's must be 0 on every registry path), the training
 numbers, the families' numbers, the library's (phase 15) and the jit
-decode's (phase 16), the card line, and the last line ``{"ok": true,
+decode's (phase 16), the multi-device layer's (phase 17), the card line,
+and the last line ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -3248,6 +3276,403 @@ def phase_jit_and_any_gdn(card: str, reps: int) -> dict:
     return dict(jit=jit, wide=wide, general=general, seconds=seconds)
 
 
+# -- phase 17: the multi-device layer on shards of the one card -----------------
+
+DP_REPS = 5               # 17a: timed data-parallel steps after two warm-up steps
+HIFIC_DP_REPS = 2         # 17a: timed HiFiC joint DP steps after the first
+SPATIAL_H, SPATIAL_W = 3072, 2048  # 17c: bmshj2018's giant image (H sharded)
+SHARDS = 4                # shards of the one card in each multi-shard mesh
+DP_RTOL, DP_ATOL = 1e-5, 1e-6      # tests/test_parallel.py's tolerance
+SPATIAL_TOL = 1e-4        # 17c: sharded against dense, of the largest entry
+
+
+def card_mesh(n: int):
+    """``n`` shards of the one card (or of the CPU in a rehearsal)."""
+    from compression_tpu_torch.parallel.data_parallel import Mesh
+
+    dev = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device("cpu")
+    return Mesh((dev,) * n)
+
+
+def max_rel_err(got, want) -> float:
+    """The largest difference over the largest entry of ``want``."""
+    want = want.detach().float()
+    return float((got.detach().float().to(want.device) - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def mean_of_shards_step(model, optimizer, loss_fn, shards) -> torch.Tensor:
+    """17a's reference, from the one-device pieces: the loss and gradients
+    of each shard in turn, their sums over the count, one update."""
+    sums, losses = None, []
+    for x in shards:
+        loss, _ = loss_fn(model, x, None)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        sums = list(grads) if sums is None else [a + g for a, g in zip(sums, grads)]
+        losses.append(loss.detach())
+    for p, g in zip(model.parameters(), sums):
+        p.grad = g / len(shards)
+    optimizer.step()
+    return torch.stack(losses).mean()
+
+
+def params_err(a, b, rtol: float, atol: float, label: str, grads: bool = False) -> float:
+    """Raises unless every parameter of ``a`` (with ``grads``, the gradient
+    its step left on it) is within ``rtol``/``atol`` of ``b``'s; returns the
+    largest |a - b| - rtol |b| found."""
+    worst = -1.0
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        if grads:
+            p, q = p.grad, q.grad
+        excess = float(((p - q).abs() - rtol * q.abs()).max().detach())
+        worst = max(worst, excess)
+        if excess > atol:
+            raise AssertionError(f"{label}: {name} off by {excess:.3g} beyond rtol {rtol}")
+    return worst
+
+
+def timed_steps(run, reps: int) -> float:
+    """Milliseconds a call of ``run`` over ``reps`` calls (host clock, each
+    ending in a sync)."""
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def phase_dp_training(card: str) -> dict:
+    """17a: data-parallel training on meshes of 1 and SHARDS shards of the
+    card: bmshj2018 from the checkpoint at 8x256x256 (gated against the
+    one-device pieces), then HiFiC hific-mi's joint step."""
+    import copy
+
+    from compression_tpu_torch.models import bmshj2018, common, hific
+    from compression_tpu_torch.models.hific import archs
+    from compression_tpu_torch.parallel import make_dp_step, shard_batch
+    from compression_tpu_torch.parallel.data_parallel import shard_generators
+
+    dev = card_mesh(1).devices[0]
+    model0 = ckpt_model().to(dev)
+    batch = torch.from_numpy(next(train_batches(TRAIN_BATCH)))
+    tcfg = common.TrainConfig()
+    quantized = lambda m, x, g: bmshj2018.make_loss_fn(m, training=False)(x, g)  # noqa: E731
+    out = {"launches": {}}
+    mesh1, meshn = card_mesh(1), card_mesh(SHARDS)
+
+    # The SHARDS-shard step against the mean of per-shard gradients.
+    dp, ref = copy.deepcopy(model0), copy.deepcopy(model0)
+    step = make_dp_step(quantized, common.make_optimizer(dp, tcfg), mesh=meshn)
+    reset_launches()
+    metrics = step(dp, batch, shard_generators(0, meshn))
+    sync()
+    out["launches"][f"quantized step, {SHARDS} shards"] = read_launches()
+    want = mean_of_shards_step(ref, common.make_optimizer(ref, tcfg), quantized,
+                               shard_batch(batch, meshn))
+    loss_err = abs(metrics["loss"].item() - want.item()) / abs(want.item())
+    if loss_err > DP_RTOL:
+        raise AssertionError(f"17a: DP loss {metrics['loss'].item()} vs {want.item()}")
+    # Adam's first update is about lr sign(g): the gradients themselves are
+    # what shows a sum of shards taken for their mean.
+    out["dp_grad_excess"] = params_err(dp, ref, DP_RTOL, DP_ATOL, "17a DP gradients",
+                                       grads=True)
+    out["dp_param_excess"] = params_err(dp, ref, DP_RTOL, DP_ATOL, "17a DP step")
+    # A mesh of one against train_step.
+    one, ts = copy.deepcopy(model0), copy.deepcopy(model0)
+    step1 = make_dp_step(quantized, common.make_optimizer(one, tcfg), mesh=mesh1)
+    got1 = step1(one, batch, shard_generators(0, mesh1))["loss"].item()
+    want1, _ = common.train_step(ts, common.make_optimizer(ts, tcfg),
+                                 bmshj2018.make_loss_fn(ts, training=False), batch.to(dev),
+                                 None, common.lr_schedule(tcfg))
+    if abs(got1 - want1.item()) > 1e-6 * abs(want1.item()):
+        raise AssertionError(f"17a: mesh of one {got1} vs train_step {want1.item()}")
+    out["one_grad_excess"] = params_err(one, ts, 1e-6, 0.0, "17a mesh of one gradients",
+                                        grads=True)
+    out["one_param_excess"] = params_err(one, ts, 1e-6, 0.0, "17a mesh of one")
+    log(f"  17a bmshj2018 DP, {SHARDS} shards of the card: loss {metrics['loss'].item():.6f}"
+        f" vs mean-of-shards {want.item():.6f} (rel {loss_err:.2e}), gradients and params "
+        f"within rtol {DP_RTOL} (+{out['dp_grad_excess']:.2e}, "
+        f"+{out['dp_param_excess']:.2e}); mesh of one vs train_step: gradients and params "
+        f"within rtol 1e-6 (+{out['one_grad_excess']:.2e}, +{out['one_param_excess']:.2e})")
+    del dp, ref, one, ts
+
+    # Training steps with noise: ms a step, launches, device busy and idle.
+    for mesh in (mesh1, meshn):
+        n = mesh.size
+        model = copy.deepcopy(model0)
+        loss_fn = lambda m, x, g: bmshj2018.make_loss_fn(m)(x, g)  # noqa: E731
+        step = make_dp_step(loss_fn, common.make_optimizer(model, tcfg), mesh=mesh)
+        gens = shard_generators(1, mesh)
+        run = lambda: step(model, batch, gens)  # noqa: E731
+        run()
+        run()
+        reset_launches()
+        run()
+        sync()
+        launches = read_launches()
+        if launches["gdn"] != 6 * n or launches["gdn_general"]:
+            raise AssertionError(f"17a: a {n}-shard step launched {launches}")
+        out["launches"][f"train step, {n} shard(s)"] = launches
+        ms = timed_steps(run, DP_REPS)
+        prof = profile_device(f"bmshj2018 DP train step, {n} shard(s) of the card", run,
+                              steps=2)
+        out[f"bmshj2018_{n}"] = dict(step_ms=ms, busy_ms=prof.get("busy_ms"),
+                                     idle=prof.get("idle"), wall_ms=prof.get("wall_ms"))
+        log(f"  17a bmshj2018 train step, {n} shard(s): {ms:.2f} ms a step, K1 "
+            f"{launches['gdn']} a step ({card})")
+        del model, step
+
+    # HiFiC hific-mi's joint DP step: finite losses, the spectral-norm
+    # state one device reaches in one step.
+    cfg = hific_config()
+    g0 = hific.HificModel(cfg, seed=0).to(dev)
+    d0 = archs.Discriminator(cfg.num_latents, seed=1).to(dev)
+    lp = synthetic_lpips().to(dev)
+    g, d = copy.deepcopy(g0), copy.deepcopy(d0)
+    step, _, _ = hific.make_train_steps(g, d, lp, cfg)
+    step(batch.to(dev), torch.Generator(dev).manual_seed(0))
+    want_state = {k: v.clone() for k, v in d.named_buffers()}
+    del g, d, step
+    for mesh in (mesh1, meshn):
+        n = mesh.size
+        g, d = copy.deepcopy(g0), copy.deepcopy(d0)
+        step, _, _ = hific.make_train_steps(g, d, lp, cfg, mesh=mesh)
+        gens = shard_generators(0, mesh)
+        reset_launches()
+        metrics = step(batch, gens)
+        sync()
+        out["launches"][f"hific joint step, {n} shard(s)"] = read_launches()
+        if not all(bool(torch.isfinite(metrics[k])) for k in ("g_loss", "d_loss")):
+            raise AssertionError(f"17a: HiFiC DP losses {metrics['g_loss']}, "
+                                 f"{metrics['d_loss']}")
+        state_err = max(max_rel_err(v, want_state[k]) for k, v in d.named_buffers())
+        if state_err > 1e-6:
+            raise AssertionError(f"17a: HiFiC DP spectral-norm state off by {state_err}")
+        ms = timed_steps(lambda: step(batch, gens), HIFIC_DP_REPS)
+        out[f"hific_{n}"] = dict(step_ms=ms, g_loss=metrics["g_loss"].item(),
+                                 d_loss=metrics["d_loss"].item(), state_err=state_err)
+        log(f"  17a hific-mi joint DP step, {n} shard(s): {ms:.2f} ms a step, g_loss "
+            f"{metrics['g_loss'].item():.4f} d_loss {metrics['d_loss'].item():.4f}, "
+            f"spectral-norm state vs one device {state_err:.2e} ({card})")
+        del g, d, step
+    return out
+
+
+def phase_spatial(card: str) -> dict:
+    """17c: SpatialCodecs on meshes of the card: bmshj2018 from the
+    checkpoint on one SPATIAL_H x SPATIAL_W image at 1 and SHARDS shards
+    against the dense Codec; the other families untrained from the seed on
+    one HEIGHT x WIDTH image at SHARDS shards."""
+    from compression_tpu_torch.models import bls2017, bmshj2018, hific, mbt2018, ms2020
+    from compression_tpu_torch.parallel.spatial import gather_rows
+    from compression_tpu_torch.util.image import psnr_np
+
+    out = {"launches": {}}
+    model = ckpt_model()
+    image = structured_image(SPATIAL_H, SPATIAL_W)
+    dense = bmshj2018.Codec(model, device=card_mesh(1).devices[0])
+    dense_blob = dense.compress(image)
+    dense_ms = timed_ms(lambda: dense.decompress(dense_blob))
+    blobs = {}
+    for n in (1, SHARDS):
+        mesh = card_mesh(n)
+        sc = bmshj2018.SpatialCodec(model, mesh)
+        reset_launches()
+        t0 = time.perf_counter()
+        blob = sc.compress(image)
+        sync()
+        c_ms = 1e3 * (time.perf_counter() - t0)
+        out["launches"][f"bmshj2018 compress, {n} shard(s)"] = c_launch = read_launches()
+        reset_launches()
+        t0 = time.perf_counter()
+        decoded = sc.decompress(blob)
+        sync()
+        d_ms = 1e3 * (time.perf_counter() - t0)
+        out["launches"][f"bmshj2018 decompress, {n} shard(s)"] = d_launch = read_launches()
+        if c_launch["gdn"] != 3 * n or d_launch["gdn"] != 3 * n:
+            raise AssertionError(f"17c: K1 launches {c_launch}, {d_launch} at {n} shards")
+        if not np.array_equal(sc.decompress(blob), decoded):
+            raise AssertionError(f"17c: a second decode differs at {n} shards")
+        psnr = float(psnr_np(decoded, image))
+        if decoded.shape != image.shape or psnr <= 25.0:
+            raise AssertionError(f"17c: round trip {decoded.shape}, PSNR {psnr:.2f} dB")
+        warm_c = timed_ms(lambda: sc.compress(image))
+        warm_d = timed_ms(lambda: sc.decompress(blob))
+        prof = profile_device(f"bmshj2018 SpatialCodec compress {SPATIAL_H}x{SPATIAL_W}, "
+                              f"{n} shard(s)", lambda: sc.compress(image), top=4)
+        # The sharded y, z, sigma and x_hat against the dense model's.
+        x = torch.from_numpy(image[None]).to(mesh.devices[0]).to(torch.float32) / 255.0
+        with torch.inference_mode():
+            y, z = bmshj2018.sharded_encode_latents(sc.model, x, mesh)
+            y_d, z_d = sc.model.encode_latents(x)
+            z_hat = dense._z_symbols(z_d)[1]
+            y_hat = torch.round(y_d)
+            errs = dict(
+                y=max_rel_err(gather_rows(y), y_d), z=max_rel_err(gather_rows(z), z_d),
+                sigma=max_rel_err(gather_rows(bmshj2018.sharded_sigma(sc.model, z_hat, mesh)),
+                                  sc.model.sigma_from_zhat(z_hat)),
+                x_hat=max_rel_err(gather_rows(bmshj2018.sharded_synthesize(
+                    sc.model, y_hat, mesh)), sc.model.synthesize(y_hat)))
+        if max(errs.values()) > SPATIAL_TOL:
+            raise AssertionError(f"17c: sharded against dense at {n} shards: {errs}")
+        blobs[n] = blob
+        out[f"bmshj2018_{n}"] = dict(compress_ms=c_ms, decompress_ms=d_ms,
+                                     warm_compress_ms=warm_c, warm_decompress_ms=warm_d,
+                                     psnr=psnr, bytes=len(blob), errs=errs,
+                                     compress_busy_ms=prof.get("busy_ms"),
+                                     compress_idle=prof.get("idle"),
+                                     compress_by_kind_ms=prof.get("by_kind_ms"))
+        log(f"  17c bmshj2018 SpatialCodec {SPATIAL_H}x{SPATIAL_W}, {n} shard(s): compress "
+            f"{c_ms:.1f} ms (warm {warm_c:.1f}), decompress {d_ms:.1f} ms (warm "
+            f"{warm_d:.1f}); K1 {c_launch['gdn']} + {d_launch['gdn']}; PSNR {psnr:.2f} dB, "
+            f"{len(blob)} bytes; sharded vs dense {errs} ({card})")
+    out["blobs_equal"] = {"1_vs_n": blobs[1] == blobs[SHARDS],
+                          "1_vs_dense": blobs[1] == dense_blob,
+                          "n_vs_dense": blobs[SHARDS] == dense_blob}
+    out["dense_decompress_ms"] = dense_ms
+    log(f"  17c blobs byte-equal (reported, not held): {out['blobs_equal']}; dense "
+        f"decompress {dense_ms:.1f} ms")
+    del dense
+
+    image = structured_image(HEIGHT, WIDTH)
+    x = torch.from_numpy(image[None]).to(card_mesh(1).devices[0]).to(torch.float32) / 255.0
+    mesh = card_mesh(SHARDS)
+    fams = (("bls2017", bls2017, bls2017.BLS2017Model(bls2017.Config(), seed=0)),
+            ("mbt2018-mean", mbt2018, mbt2018.MBT2018Model(mbt2018_config(), seed=0)),
+            ("ms2020-cc10", ms2020, ms2020.MS2020Model(ms2020_config(), seed=0)),
+            ("hific-mi", hific, hific.HificModel(hific_config(), seed=0)))
+    for name, mod, fam_model in fams:
+        sc = mod.SpatialCodec(fam_model, mesh)
+        # The first call pays cuDNN's algorithm search for the shard shapes;
+        # the second is the one timed and counted.
+        t0 = time.perf_counter()
+        sc.decompress(sc.compress(image))
+        sync()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        reset_launches()
+        t0 = time.perf_counter()
+        decoded = sc.decompress(sc.compress(image))
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        out["launches"][f"{name} round trip, {SHARDS} shards"] = launches = read_launches()
+        if decoded.shape != image.shape:
+            raise AssertionError(f"17c: {name} decoded {decoded.shape}")
+        with torch.inference_mode():
+            if mod is bls2017:
+                y, y_d = bls2017.sharded_analyze(sc.model, x, mesh), sc.model.analysis(x)
+            else:
+                y = mod.sharded_encode_latents(sc.model, x, mesh)[0]
+                y_d = sc.model.encode_latents(x)[0]
+            err = max_rel_err(gather_rows(y), y_d)
+        if err > SPATIAL_TOL:
+            raise AssertionError(f"17c: {name} sharded y off the dense by {err}")
+        out[name] = dict(round_trip_ms=ms, first_round_trip_ms=first_ms, y_err=err,
+                         psnr=float(psnr_np(decoded, image)))
+        log(f"  17c {name} SpatialCodec {HEIGHT}x{WIDTH}, {SHARDS} shards: round trip "
+            f"{ms:.1f} ms (first call {first_ms:.1f}), K1 {launches['gdn']}, y vs dense "
+            f"{err:.2e} ({card})")
+    return out
+
+
+def phase_charm_sharded(card: str) -> dict:
+    """17d: ShardedCharmCodec over meshes of 1 and SHARDS shards of the
+    card, ms2020-cc10 from the seed on the 8 structured images, both
+    coders, byte-equal to Codec.decompress_batch; and a ragged 7."""
+    from compression_tpu_torch.models import ms2020
+    from compression_tpu_torch.parallel import ShardedCharmCodec
+
+    out = {"launches": {}}
+    model = ms2020.MS2020Model(ms2020_config(), seed=0)
+    codec = ms2020.make_codec(model, card_mesh(1).devices[0])
+    images = structured_images()
+    sharded = {n: ShardedCharmCodec(model, card_mesh(n)) for n in (1, SHARDS)}
+    for coder in ("host", "device"):
+        blobs = codec.compress_batch(images, coder=coder)
+        ref = codec.decompress_batch(blobs)
+        for n, sc in sharded.items():
+            reset_launches()
+            t0 = time.perf_counter()
+            got = sc.decompress_batch(blobs)
+            sync()
+            ms = 1e3 * (time.perf_counter() - t0)
+            out["launches"][f"{coder} coder, {n} shard(s)"] = launches = read_launches()
+            if not np.array_equal(got, ref):
+                raise AssertionError(f"17d: {coder}-coded decode over {n} shard(s) differs")
+            want_k2 = 10 * n if coder == "device" else 0
+            if launches["rans_decode"] != want_k2:
+                raise AssertionError(f"17d: K2 {launches['rans_decode']}, not {want_k2}")
+            out[f"{coder}_{n}"] = dict(decode_ms=ms, launches=launches)
+            log(f"  17d ShardedCharmCodec {coder} coder, {n} shard(s): {BATCH} images "
+                f"byte-equal, {ms:.1f} ms, K1 {launches['gdn']}, K2 "
+                f"{launches['rans_decode']} ({card})")
+        if not np.array_equal(sharded[SHARDS].decompress_batch(blobs[:7]), ref[:7]):
+            raise AssertionError(f"17d: the ragged batch of 7 ({coder}) differs")
+    log("  17d ragged batch of 7 over 4 shards byte-equal with both coders")
+    return out
+
+
+def phase_cli_spatial(card: str) -> dict:
+    """17 CLI: ``tfci compress/decompress --spatial 1`` on the card with
+    the checkpoint; ``--spatial 2`` exits naming the device count."""
+    import shutil
+    import tempfile
+
+    from compression_tpu_torch.util.image import psnr_np, read_png, write_png
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="tfci_spatial_"))
+    models = tmp / "models"
+    models.mkdir()
+    shutil.copy(ROOT / "ckpt" / "bmshj2018.msgpack", models / "bmshj2018-hyperprior.msgpack")
+    saved = os.environ.get("TPC_MODEL_DIR")
+    os.environ["TPC_MODEL_DIR"] = str(models)
+    out = {"launches": {}}
+    try:
+        image = structured_image(HEIGHT, WIDTH)
+        png, blob, back = str(tmp / "in.png"), str(tmp / "a.tfci"), str(tmp / "a.png")
+        write_png(png, image)
+        ms, out["launches"]["compress --spatial 1"], _ = tfci(
+            ["compress", "bmshj2018-hyperprior", png, blob, "--spatial", "1"],
+            want=launches_of(gdn=3))
+        ms_d, out["launches"]["decompress --spatial 1"], _ = tfci(
+            ["decompress", blob, back, "--spatial", "1"], want=launches_of(gdn=3))
+        psnr = float(psnr_np(read_png(back), image))
+        if psnr <= 25.0:
+            raise AssertionError(f"17 CLI: --spatial 1 round trip PSNR {psnr:.2f}")
+        count = torch.cuda.device_count() if DEVICE == "cuda" else os.cpu_count()
+        try:
+            tfci(["compress", "bmshj2018-hyperprior", png, str(tmp / "b.tfci"),
+                  "--spatial", str(count + 1)])
+        except SystemExit as e:
+            message = str(e)
+        else:
+            raise AssertionError(f"17 CLI: --spatial {count + 1} did not exit")
+        if f"this process sees {count} device(s)" not in message:
+            raise AssertionError(f"17 CLI: --spatial {count + 1} said {message!r}")
+        log(f"  17 CLI --spatial 1: compress {ms:.1f} ms, decompress {ms_d:.1f} ms, PSNR "
+            f"{psnr:.2f} dB; --spatial {count + 1}: {message!r}")
+        out.update(compress_ms=ms, decompress_ms=ms_d, psnr=psnr)
+    finally:
+        os.environ.pop("TPC_MODEL_DIR", None)
+        if saved is not None:
+            os.environ["TPC_MODEL_DIR"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_multi_device(card: str) -> dict:
+    """17: the multi-device layer on shards of the one card: DP training
+    (17a), SpatialCodecs (17c), the image-parallel CHARM decode (17d) and
+    ``tfci --spatial``."""
+    log(f"multi-device layer on {SHARDS} shards of the card (phase 17; {card}):")
+    t_phase = time.perf_counter()
+    out = dict(dp=phase_dp_training(card), spatial=phase_spatial(card),
+               charm=phase_charm_sharded(card), cli=phase_cli_spatial(card))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 17 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def timed_ms(fn) -> float:
     sync()
     t0 = time.perf_counter()
@@ -3307,6 +3732,7 @@ def main() -> int:
     cli = phase_cli(card)
     library = phase_library(card)
     any_gdn = phase_jit_and_any_gdn(card, args.reps)
+    multi = phase_multi_device(card)
 
     # Each kernel's launches on every path, each path counted on its own.
     paths = {
@@ -3333,6 +3759,13 @@ def main() -> int:
         "library (phase 15a): bmshj2018 analysis of the 8 images": library["launches"],
         "bmshj2018 jit decode (16a, warm)": any_gdn["jit"]["launches"],
         "bmshj2018 jit decode, device-coded blobs (16a)": any_gdn["jit"]["device_launches"],
+        **{f"bmshj2018/hific-mi data-parallel {k} (17a)": v
+           for k, v in multi["dp"]["launches"].items()},
+        **{f"SpatialCodec {k} (17c)": v for k, v in multi["spatial"]["launches"].items()},
+        **{f"ms2020 ShardedCharmCodec decode, {k} (17d)": v
+           for k, v in multi["charm"]["launches"].items()},
+        **{f"tfci bmshj2018-hyperprior {k} (17)": v
+           for k, v in multi["cli"]["launches"].items()},
     }
     # Paths of a model outside the registry: GDN at 320 channels (16c).
     wide_paths = {
@@ -3425,8 +3858,11 @@ def main() -> int:
     jit_line = {**{k: v for k, v in any_gdn["jit"].items() if "launches" not in k},
                 "wide_cpu_max_rel_err": any_gdn["wide"]["cpu_max_rel_err"],
                 "seconds": any_gdn["seconds"]}
+    multi_line = {k: ({kk: vv for kk, vv in v.items() if kk != "launches"}
+                      if isinstance(v, dict) else v) for k, v in multi.items()}
     print(json.dumps({"kernels": kernels, "training": train_line, "families": families,
-                      "cli": cli_line, "library": library_line, "jit_decode": jit_line}))
+                      "cli": cli_line, "library": library_line, "jit_decode": jit_line,
+                      "multi_device": multi_line}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

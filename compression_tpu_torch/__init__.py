@@ -35,16 +35,21 @@ its module paths so every counterpart is easy to find:
                    device_coding.py (blob formats, the device coder's
                    stages), common.py (train loop, data, checkpoints),
                    toy_sources.py (NTC and ECVQ on 2-D sources)
-  parallel/        double-buffered device/host coding pipeline
-                   (pipeline_map), staggered decode, CHARM's pipelined
-                   batch decode
+  parallel/        one-process meshes of devices: data-parallel training
+                   (make_mesh, shard_batch, make_dp_step), halo-sharded
+                   convolutions and transforms (spatial.py, each family's
+                   sharded functions and SpatialCodec), the image-parallel
+                   CHARM decode (ShardedCharmCodec); the double-buffered
+                   device/host coding pipeline (pipeline_map), staggered
+                   decode, CHARM's pipelined batch decode
   util/            PackedTensors, image padding and metrics, numeric, tracing
                    and stage timing, device segments as CUDA graphs
   csrc/            CUDA C++ kernels (gdn.cu, rans.cu), built with nvcc at first use
   convert.py       weight bridge to and from the JAX package's flax checkpoints
                    (nested holders, flax nn.Conv kernels, spectral-norm
                    batch_stats)
-  entry.py         bmshj2018's full-width loss step with example arguments
+  entry.py         bmshj2018's full-width loss step with example arguments;
+                   dryrun_multichip, one pass over the multi-device paths
   all_tests.py     post-install smoke run (python -m compression_tpu_torch.all_tests)
 
 It imports torch and numpy, never JAX or the JAX package. Entry points run

@@ -34,13 +34,6 @@ from compression_tpu_torch.util.device import resolve_device, strict_fp32
 _DEVICE_CODER_FAMILIES = ("bmshj2018", "ms2020", "mbt2018", "hific")
 
 
-def _not_ported(flag: str, item: int) -> SystemExit:
-    return SystemExit(
-        f"{flag} is not ported to the PyTorch/CUDA package yet (ROADMAP item "
-        f"{item}); use the JAX package's CLI for it"
-    )
-
-
 def _load_model(name: str, allow_random: bool = False, device="cuda"):
     """Resolves ``name``, loads its checkpoint into the seeded module, moves
     it to ``device`` and binds its table file to it. Returns (entry,
@@ -80,9 +73,31 @@ def cmd_models(args) -> int:
     return 0
 
 
+def _spatial_codec(entry, model, n: int, device):
+    """The family's giant-image SpatialCodec over a mesh of ``n`` devices
+    (the visible cards, or ``n`` virtual shards of the CPU with ``--device
+    cpu``; transforms H-sharded, see ``models/<family>.SpatialCodec``)."""
+    import importlib
+
+    from compression_tpu_torch.parallel.data_parallel import make_mesh
+
+    if entry.family not in ("bls2017", "bmshj2018", "mbt2018", "ms2020", "hific"):
+        raise SystemExit(
+            f"--spatial needs one of the codec families bls2017/bmshj2018/"
+            f"mbt2018/ms2020/hific; got {entry.family!r}"
+        )
+    kind = resolve_device(device).type
+    ndev = torch.cuda.device_count() if kind == "cuda" else os.cpu_count()
+    if not 1 <= n <= ndev:
+        raise SystemExit(f"--spatial {n}: this process sees {ndev} device(s)")
+    mod = importlib.import_module(
+        "compression_tpu_torch.models.hific.model" if entry.family == "hific"
+        else f"compression_tpu_torch.models.{entry.family}"
+    )
+    return mod.SpatialCodec(model, make_mesh(n, device=device))
+
+
 def cmd_compress(args) -> int:
-    if args.spatial:
-        raise _not_ported("--spatial", 17)
     name = args.model
     if args.rd_parameter is not None:
         # A runtime rate point for variable-rate models, equivalent to the
@@ -112,6 +127,9 @@ def cmd_compress(args) -> int:
                 f"mbt2018/ms2020/hific); {name!r} is {entry.family}"
             )
         data = entry.compress(model, image, coder="device", device=args.device)
+    elif args.spatial:
+        # Giant-image mode: the transforms H-sharded over a mesh.
+        data = _spatial_codec(entry, model, args.spatial, args.device).compress(image)
     else:
         data = entry.compress(model, image, device=args.device)
     out = args.output or args.input + ".tfci"
@@ -123,8 +141,6 @@ def cmd_compress(args) -> int:
 
 
 def cmd_decompress(args) -> int:
-    if args.spatial:
-        raise _not_ported("--spatial", 17)
     with open(args.input, "rb") as f:
         data = f.read()
     name = PackedTensors(data).model
@@ -142,6 +158,8 @@ def cmd_decompress(args) -> int:
 
         codec = bmshj2018.make_codec(model, args.device)
         image = codec.decompress_batch_jit([data])[0]
+    elif args.spatial:
+        image = _spatial_codec(entry, model, args.spatial, args.device).decompress(data)
     else:
         image = entry.decompress(model, data, device=args.device)
     out = args.output or os.path.splitext(args.input)[0] + ".png"
@@ -426,8 +444,10 @@ def cmd_eval(args) -> int:
 
 
 _SPATIAL_HELP = (
-    "giant-image mode (transforms H-sharded over an N-device mesh): not "
-    "ported yet, raises"
+    "giant-image mode: run the transforms H-sharded over an N-device mesh "
+    "(N cards, or N virtual CPU shards with --device cpu); entropy coding "
+    "stays on the host. Decode a spatially-coded stream with the same mesh "
+    "size for guaranteed bit-exact row math"
 )
 
 

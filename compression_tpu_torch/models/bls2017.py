@@ -17,8 +17,10 @@ does; each becomes a 3-field ``.tfci`` blob ``[string, xshape, yshape]``,
 byte-compatible with the JAX package's. Layouts at the public boundary are
 the JAX package's: images HWC uint8, latents ``(N, h, w, C)``.
 :func:`make_codec` keeps one codec per model and device; as in the JAX
-package, its tables are built without the table disk cache. Not ported
-yet: ``SpatialCodec`` and the sharded transforms.
+package, its tables are built without the table disk cache. The
+``sharded_*`` functions run the transforms with H sharded over a mesh, and
+:class:`SpatialCodec` codes one image through them
+(:mod:`compression_tpu_torch.parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -36,18 +38,27 @@ from compression_tpu_torch.layers.priors import DeepFactorizedPrior
 from compression_tpu_torch.models import bmshj2018, common
 from compression_tpu_torch.models.codec_base import DeviceCodec
 from compression_tpu_torch.models.codec_cache import cached
+from compression_tpu_torch.parallel.spatial import (
+    gather_rows,
+    map_shards,
+    shard_rows,
+    sharded_transform_apply,
+)
 from compression_tpu_torch.util import PackedTensors
-from compression_tpu_torch.util.image import pad_to_multiple_np
+from compression_tpu_torch.util.image import pad_to_multiple_np, to_uint8
 
 __all__ = [
     "Config",
     "BLS2017Model",
     "Codec",
+    "SpatialCodec",
     "compress",
     "decompress",
     "load_model",
     "make_codec",
     "make_loss_fn",
+    "sharded_analyze",
+    "sharded_synthesize",
     "train",
 ]
 
@@ -263,3 +274,58 @@ def compress(model: BLS2017Model, image: np.ndarray, device="cuda") -> bytes:
 
 def decompress(model: BLS2017Model, data: bytes, device="cuda") -> np.ndarray:
     return make_codec(model, device).decompress(data)
+
+
+# -- spatially sharded transforms (images too large for one device) -----------
+
+
+def sharded_analyze(model: BLS2017Model, x, mesh, axis="data"):
+    """H-sharded analysis: x (N, H, W, 3) in [0, 1], or its shards -> y's
+    shards (H divisible by ``mesh size * 16``). GDN runs on each shard."""
+    return sharded_transform_apply(model.analysis, x, mesh, axis)
+
+
+def sharded_synthesize(model: BLS2017Model, y_hat, mesh, axis="data"):
+    """H-sharded synthesis: y_hat or its shards -> x_hat's shards (h
+    divisible by the mesh size)."""
+    return sharded_transform_apply(model.synthesis, y_hat, mesh, axis)
+
+
+class SpatialCodec:
+    """Giant-image factorized-prior codec: one image, both transforms
+    H-sharded over ``mesh``, the host range coder, the standard 3-field
+    blob. A factorized prior's rows are fixed per channel: only the
+    transforms shard.
+
+    Args:
+      model: a :class:`BLS2017Model` (moved to ``mesh.devices[0]``).
+      mesh: the shards' devices.
+    """
+
+    def __init__(self, model: BLS2017Model, mesh, axis="data"):
+        self.codec = make_codec(model, mesh.devices[0])
+        self.model, self.cfg = self.codec.model, self.codec.cfg
+        self.mesh, self.axis = mesh, axis
+        self._mult = self.cfg.downscale * mesh.shape[axis]
+
+    def compress(self, image: np.ndarray) -> bytes:
+        """uint8 (H, W, 3) -> 3-field .tfci blob."""
+        x, (h, w) = pad_to_multiple_np(np.asarray(image, np.uint8)[None], self._mult,
+                                       self.cfg.downscale)
+        with torch.inference_mode():
+            x = map_shards(lambda s: s.to(torch.float32) / 255.0,
+                           shard_rows(torch.from_numpy(x), self.mesh, self.axis))
+            y = gather_rows(sharded_analyze(self.model, x, self.mesh, self.axis))
+            string = self.codec.em.compress(y)[0]
+        return self.codec._blob([string, np.array([h, w], np.int32),
+                                 np.array(y.shape[1:3], np.int32)])
+
+    def decompress(self, data: bytes) -> np.ndarray:
+        """3-field .tfci blob -> uint8 (H, W, 3)."""
+        string, xshape, yshape = PackedTensors(data).unpack([object, np.int32, np.int32])
+        y_hat = self.codec.em.decompress([bytes(string[0])], tuple(int(v) for v in yshape))
+        with torch.inference_mode():
+            y_hat = shard_rows(torch.from_numpy(y_hat), self.mesh, self.axis)
+            x_hat = sharded_synthesize(self.model, y_hat, self.mesh, self.axis)
+            x_hat = gather_rows(map_shards(to_uint8, x_hat)).cpu().numpy()
+        return x_hat[0, : int(xshape[0]), : int(xshape[1]), :]

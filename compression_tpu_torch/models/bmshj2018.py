@@ -26,8 +26,10 @@ latents ``(N, h, w, C)``. :func:`make_codec` keeps one codec per model
 and device; the codec reads its tables through the table disk cache
 (:mod:`compression_tpu_torch.models.codec_cache`).
 ``Codec.decompress_batch_jit`` is the JAX package's single-program decode,
-its device segments captured as CUDA graphs. Not ported yet:
-``SpatialCodec`` and the sharded transforms.
+its device segments captured as CUDA graphs. The ``sharded_*`` functions
+run the transforms with H sharded over a mesh, and :class:`SpatialCodec`
+codes one image through them
+(:mod:`compression_tpu_torch.parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -57,18 +59,30 @@ from compression_tpu_torch.models.device_coding import (
     parse_host_blobs,
 )
 from compression_tpu_torch.ops.math_ops import lower_bound
+from compression_tpu_torch.models.spatial_codec import SpatialCodecBase
 from compression_tpu_torch.parallel.pipeline import Work
+from compression_tpu_torch.parallel.spatial import (
+    as_shards,
+    map_shards,
+    sharded_transform_apply,
+)
 from compression_tpu_torch.util.graphs import Segment
 
 __all__ = [
     "Config",
     "BMSHJ2018Model",
     "Codec",
+    "SpatialCodec",
     "compress",
     "decompress",
     "load_model",
     "make_codec",
     "make_loss_fn",
+    "sharded_analyze",
+    "sharded_encode_latents",
+    "sharded_hyper_analyze",
+    "sharded_sigma",
+    "sharded_synthesize",
     "train",
 ]
 
@@ -412,3 +426,64 @@ def compress(model: BMSHJ2018Model, image: np.ndarray, coder: str = "host",
 
 def decompress(model: BMSHJ2018Model, data: bytes, device="cuda") -> np.ndarray:
     return make_codec(model, device).decompress(data)
+
+
+# -- spatially sharded transforms (images too large for one device) -----------
+
+
+def sharded_analyze(model: BMSHJ2018Model, x, mesh, axis="data"):
+    """H-sharded analysis: x (N, H, W, 3) in [0, 1], or its shards -> y's
+    shards. H must divide ``mesh size * 16`` (four stride-2 levels)."""
+    return sharded_transform_apply(model.analysis, x, mesh, axis)
+
+
+def sharded_synthesize(model: BMSHJ2018Model, y_hat, mesh, axis="data"):
+    """H-sharded synthesis: y_hat (N, h, w, C) or its shards -> x_hat's
+    shards (16x up-sampled; h divisible by the mesh size, at least 2 rows
+    a shard for the 5x5 halos)."""
+    return sharded_transform_apply(model.synthesis, y_hat, mesh, axis)
+
+
+def sharded_hyper_analyze(model: BMSHJ2018Model, y, mesh, axis="data"):
+    """H-sharded hyper-analysis: y -> z's shards (|y| in)."""
+    return sharded_transform_apply(
+        model.hyper_analysis, map_shards(torch.abs, as_shards(y, mesh, axis)), mesh, axis)
+
+
+def sharded_sigma(model: BMSHJ2018Model, z_hat, mesh, axis="data"):
+    """H-sharded hyper-synthesis: z_hat -> sigma's shards (>= SCALES_MIN)."""
+    return map_shards(lambda s: lower_bound(s, SCALES_MIN), sharded_transform_apply(
+        model.hyper_synthesis, z_hat, mesh, axis))
+
+
+def sharded_encode_latents(model: BMSHJ2018Model, x, mesh, axis="data"):
+    """The encode front (x -> y -> z) H-sharded over the mesh (H divisible
+    by ``mesh size * 64``); returns the shards of y and of z."""
+    y = sharded_analyze(model, x, mesh, axis)
+    return y, sharded_hyper_analyze(model, y, mesh, axis)
+
+
+class SpatialCodec(SpatialCodecBase):
+    """Giant-image codec: one image, its four transforms H-sharded over
+    ``mesh``, the host range coder on the latents; the standard 4-field
+    blob (:class:`~compression_tpu_torch.models.spatial_codec.SpatialCodecBase`).
+    z_hat -> sigma -> rows is one sharded function on both sides.
+
+    Args:
+      model: a :class:`BMSHJ2018Model` (moved to ``mesh.devices[0]``).
+      mesh: the shards' devices
+        (:func:`~compression_tpu_torch.parallel.data_parallel.make_mesh`).
+    """
+
+    def __init__(self, model: BMSHJ2018Model, mesh, axis="data"):
+        super().__init__(make_codec(model, mesh.devices[0]), mesh, axis)
+
+    def _front(self, x):
+        return sharded_encode_latents(self.model, x, self.mesh, self.axis)
+
+    def _mu_rows(self, z_hat):
+        return None, map_shards(self.codec.em.rows,
+                                sharded_sigma(self.model, z_hat, self.mesh, self.axis))
+
+    def _synth(self, y_hat):
+        return sharded_synthesize(self.model, y_hat, self.mesh, self.axis)

@@ -37,6 +37,7 @@ from compression_tpu_torch.models.device_coding import is_device_coded, parse_ho
 from compression_tpu_torch.parallel.pipeline import Pipeline, Work, stream_context
 from compression_tpu_torch.util import PackedTensors
 from compression_tpu_torch.util.device import resolve_device, strict_fp32
+from compression_tpu_torch.util.image import to_uint8
 from compression_tpu_torch.util.numeric import slim_int
 from compression_tpu_torch.util.profiling import StageTimer
 
@@ -97,8 +98,7 @@ class DeviceCodec:
 
     def _synthesize(self, y_hat: torch.Tensor, *args) -> torch.Tensor:
         """y_hat (and what else the model's ``synthesize`` takes) -> uint8."""
-        x = self.model.synthesize(y_hat.to(torch.float32), *args)
-        return torch.clamp(torch.round(x * 255.0), 0, 255).to(torch.uint8)
+        return to_uint8(self.model.synthesize(y_hat.to(torch.float32), *args))
 
 
 class HyperpriorCodec(DeviceCodec):

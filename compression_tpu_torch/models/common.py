@@ -12,9 +12,11 @@ dataset, the metrics CSV, checkpoints and the train loop.
   writes them).
 * :func:`train_model` runs Adam (``torch.optim.Adam``: optax's update,
   ``eps`` outside the square root) with optax's learning-rate schedules,
-  on the card unless the caller passes ``device="cpu"``. As in the JAX
-  package, a resumed run restarts its noise generator and its data stream
-  from ``cfg.seed``.
+  on the card unless the caller passes ``device="cpu"``; with
+  ``num_devices > 1`` each step is data-parallel over a mesh of that many
+  devices (:func:`compression_tpu_torch.parallel.make_dp_step`) and writes
+  the same checkpoints. As in the JAX package, a resumed run restarts its
+  noise generators and its data stream from ``cfg.seed``.
 """
 
 from __future__ import annotations
@@ -87,7 +89,7 @@ class TrainConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_name: str = "checkpoint.msgpack"  # per-model to avoid clashes
     seed: int = 0
-    num_devices: int = 1               # data-parallel width (not ported)
+    num_devices: int = 1               # data-parallel width
     # Optional per-parameter-group lr multipliers: ((path_prefix, scale),
     # ...) matched against the JAX package's "params/..." key paths (the
     # last matching prefix wins).
@@ -351,16 +353,18 @@ def train_model(
       model: the module to train (moved to ``device``).
       loss_fn: ``(batch, generator) -> (loss, metrics dict)``, on
         ``model``; batch is float32 NHWC in [0, 1] on the device.
-      cfg: TrainConfig.
+      cfg: TrainConfig; ``num_devices > 1`` shards each batch over
+        ``make_mesh(num_devices, device=device)`` (the batch size must
+        divide), with shard d's noise from ``(cfg.seed, d)``.
       hooks: optional ``callable(step, metrics)`` at every logged step.
       device: ``"cuda"`` (default; raises if absent) or ``"cpu"``.
 
     Returns the trained model.
     """
-    if cfg.num_devices > 1:
-        raise NotImplementedError(
-            "data-parallel training (num_devices > 1) is not ported yet; "
-            "see ROADMAP item 17"
+    if cfg.num_devices > 1 and cfg.batch_size % cfg.num_devices:
+        raise ValueError(
+            f"batch_size ({cfg.batch_size}) must be divisible by "
+            f"num_devices ({cfg.num_devices}) for data parallelism"
         )
     device = resolve_device(device)
     if device.type == "cuda":
@@ -382,13 +386,32 @@ def train_model(
             print(f"resumed {'' if with_moments else '(params only) '}"
                   f"from {resume_path} @ step {start_step}")
 
+    dp_step = None
+    if cfg.num_devices > 1:
+        from compression_tpu_torch.parallel.data_parallel import (
+            make_dp_step,
+            make_mesh,
+            shard_generators,
+        )
+
+        mesh = make_mesh(cfg.num_devices, device=device)
+        # loss_fn closes over model: the step runs it on each replica.
+        dp_step = make_dp_step(lambda _model, x, gen: loss_fn(x, gen), optimizer,
+                               mesh=mesh)
+        generators = shard_generators(cfg.seed, mesh)
+
     t0 = time.time()
     for step in range(start_step + 1, cfg.steps + 1):
         batch = torch.from_numpy(next(data))
-        if device.type == "cuda":
-            batch = batch.pin_memory().to(device, non_blocking=True)
-        loss, metrics = train_step(model, optimizer, loss_fn, batch, generator,
-                                   schedule)
+        if dp_step is not None:
+            _set_lr(optimizer, schedule(_updates_done(optimizer)))
+            metrics = dp_step(model, batch, generators)
+            loss = metrics.pop("loss")
+        else:
+            if device.type == "cuda":
+                batch = batch.pin_memory().to(device, non_blocking=True)
+            loss, metrics = train_step(model, optimizer, loss_fn, batch, generator,
+                                       schedule)
         if step % cfg.log_every == 0 or step == cfg.steps:
             m = {k: v.item() for k, v in {"loss": loss, **metrics}.items()}
             rate = (step - start_step) * cfg.batch_size / (time.time() - t0)

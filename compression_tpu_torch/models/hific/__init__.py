@@ -3,9 +3,8 @@ counterpart of ``compression_tpu/models/hific/``. archs (ChannelNorm, the
 Encoder and Generator, the spectral-norm Discriminator), model (the G-side
 model, the G and D losses with the rate hinge, the joint G/D step, the
 codec with both coders and the module-level ``make_codec`` / ``compress``
-/ ``decompress``), configs (hific-lo/mi/hi), lpips, train.
-
-Not ported yet: ``SpatialCodec`` and the sharded functions.
+/ ``decompress``, the sharded transforms and ``SpatialCodec``), configs
+(hific-lo/mi/hi), lpips, train.
 """
 
 from compression_tpu_torch.models.hific.archs import (
@@ -18,12 +17,17 @@ from compression_tpu_torch.models.hific.configs import CONFIGS, HificConfig, get
 from compression_tpu_torch.models.hific.model import (
     Codec,
     HificModel,
+    SpatialCodec,
     compress,
     decompress,
     load_model,
     make_codec,
     make_loss_fns,
     make_train_steps,
+    sharded_encode,
+    sharded_encode_latents,
+    sharded_generate,
+    sharded_params,
 )
 from compression_tpu_torch.models.hific.train import train
 
@@ -43,5 +47,10 @@ __all__ = [
     "make_codec",
     "make_loss_fns",
     "make_train_steps",
+    "sharded_encode",
+    "sharded_encode_latents",
+    "sharded_generate",
+    "sharded_params",
+    "SpatialCodec",
     "train",
 ]

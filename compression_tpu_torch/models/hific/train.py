@@ -57,6 +57,9 @@ def train(cfg: HificConfig, train_cfg: common.TrainConfig, params=None, *,
 
     The G model is seeded with ``train_cfg.seed``, D with the next seed, the
     noise generator on the device with ``train_cfg.seed``. With
+    ``train_cfg.num_devices > 1`` (the batch size must divide) each step is
+    data-parallel over that many devices, shard d's noise seeded from
+    ``(train_cfg.seed, d)``. With
     ``cfg.rate_probe_glob`` the coded bpp of those images is measured at
     step 1 and every ``rate_probe_every`` steps (smoothed by
     ``probe_ema``) and the hinge compares it instead of the patch rate;
@@ -98,9 +101,24 @@ def train(cfg: HificConfig, train_cfg: common.TrainConfig, params=None, *,
         probe_batch, probe_scale = _probe_batch(cfg.rate_probe_glob)
         probe_batch = probe_batch.to(device)
         probe = lambda: float(model.coded_bpp(probe_batch)) * probe_scale  # noqa: E731
-    step_fn, _, _ = make_train_steps(model, disc, lpips, cfg,
-                                     num_devices=train_cfg.num_devices)
-    generator = torch.Generator(device).manual_seed(train_cfg.seed)
+    n_dev = train_cfg.num_devices
+    if n_dev > 1:
+        from compression_tpu_torch.parallel.data_parallel import (
+            make_mesh,
+            shard_generators,
+        )
+
+        if train_cfg.batch_size % n_dev:
+            raise ValueError(
+                f"batch_size ({train_cfg.batch_size}) must be divisible by "
+                f"num_devices ({n_dev}) for data parallelism"
+            )
+        mesh = make_mesh(n_dev, device=device)
+        step_fn, _, _ = make_train_steps(model, disc, lpips, cfg, mesh=mesh)
+        generator = shard_generators(train_cfg.seed, mesh)
+    else:
+        step_fn, _, _ = make_train_steps(model, disc, lpips, cfg)
+        generator = torch.Generator(device).manual_seed(train_cfg.seed)
 
     lam_lo = cfg.lambda_b
     lam_hi = cfg.lambda_a * max(cfg.k_mse_scale, 1.0)
@@ -110,7 +128,7 @@ def train(cfg: HificConfig, train_cfg: common.TrainConfig, params=None, *,
     t0 = time.time()
     for step in range(1, train_cfg.steps + 1):
         batch = torch.from_numpy(next(data))
-        if device.type == "cuda":
+        if device.type == "cuda" and n_dev == 1:
             batch = batch.pin_memory().to(device, non_blocking=True)
         if probe is not None and (step == 1 or step % cfg.rate_probe_every == 0):
             with torch.no_grad():

@@ -22,7 +22,9 @@ Training uses mixed quantization, as the JAX package does: the rates come
 from the noise surrogate, while the hyper-synthesis reads the rounded z and
 the synthesis the y rounded around mu, the values the decoder will see.
 
-Not ported yet: ``SpatialCodec`` and the sharded transforms.
+The ``sharded_*`` functions run the transforms with H sharded over a
+mesh, and :class:`SpatialCodec` codes one image through them
+(:mod:`compression_tpu_torch.parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -45,17 +47,25 @@ from compression_tpu_torch.layers.priors import DeepFactorizedPrior
 from compression_tpu_torch.models import bmshj2018, common
 from compression_tpu_torch.models.codec_base import HyperpriorCodec
 from compression_tpu_torch.models.codec_cache import cached
+from compression_tpu_torch.models.spatial_codec import SpatialCodecBase
 from compression_tpu_torch.ops.math_ops import lower_bound
+from compression_tpu_torch.parallel.spatial import map_shards, sharded_transform_apply
 
 __all__ = [
     "Config",
     "MBT2018Model",
     "Codec",
+    "SpatialCodec",
     "compress",
     "decompress",
     "load_model",
     "make_codec",
     "make_loss_fn",
+    "sharded_analyze",
+    "sharded_encode_latents",
+    "sharded_hyper_analyze",
+    "sharded_params",
+    "sharded_synthesize",
     "train",
 ]
 
@@ -233,3 +243,61 @@ def compress(model: MBT2018Model, image: np.ndarray, coder: str = "host",
 
 def decompress(model: MBT2018Model, data: bytes, device="cuda") -> np.ndarray:
     return make_codec(model, device).decompress(data)
+
+
+# -- spatially sharded transforms (images too large for one device) -----------
+#
+# bmshj2018's analysis and synthesis; the hyper pair takes signed y and
+# gives (mu, sigma).
+
+sharded_analyze = bmshj2018.sharded_analyze
+sharded_synthesize = bmshj2018.sharded_synthesize
+
+
+def sharded_hyper_analyze(model: MBT2018Model, y, mesh, axis="data"):
+    """H-sharded hyper-analysis: y -> z's shards (signed y in)."""
+    return sharded_transform_apply(model.hyper_analysis, y, mesh, axis)
+
+
+def split_params(out):
+    """The joint head's shards -> (mu, sigma >= SCALES_MIN) shards."""
+    halves = [torch.chunk(s, 2, dim=-1) for s in out]
+    return ([mu for mu, _ in halves],
+            [lower_bound(sigma, SCALES_MIN) for _, sigma in halves])
+
+
+def sharded_params(model: MBT2018Model, z_hat, mesh, axis="data"):
+    """H-sharded hyper-synthesis: z_hat -> the shards of mu and of sigma."""
+    return split_params(sharded_transform_apply(model.hyper_synthesis, z_hat, mesh, axis))
+
+
+def sharded_encode_latents(model: MBT2018Model, x, mesh, axis="data"):
+    """The encode front (x -> y -> z) H-sharded (H divisible by ``mesh
+    size * 64``); returns the shards of y and of z."""
+    y = sharded_analyze(model, x, mesh, axis)
+    return y, sharded_hyper_analyze(model, y, mesh, axis)
+
+
+class SpatialCodec(SpatialCodecBase):
+    """Giant-image mean-scale codec: one image, its transforms H-sharded
+    over ``mesh``, the host range coder, the standard 4-field blob. z_hat
+    -> (mu, rows) is one sharded function on both sides, and the symbols
+    are ``round(y - mu)`` / ``values + mu`` as in the dense codec.
+
+    Args:
+      model: an :class:`MBT2018Model` (moved to ``mesh.devices[0]``).
+      mesh: the shards' devices.
+    """
+
+    def __init__(self, model: MBT2018Model, mesh, axis="data"):
+        super().__init__(make_codec(model, mesh.devices[0]), mesh, axis)
+
+    def _front(self, x):
+        return sharded_encode_latents(self.model, x, self.mesh, self.axis)
+
+    def _mu_rows(self, z_hat):
+        mu, sigma = sharded_params(self.model, z_hat, self.mesh, self.axis)
+        return mu, map_shards(self.codec.em.rows, sigma)
+
+    def _synth(self, y_hat):
+        return sharded_synthesize(self.model, y_hat, self.mesh, self.axis)

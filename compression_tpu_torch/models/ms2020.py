@@ -23,8 +23,12 @@ Coding: :class:`Codec`, with the batch API of
   encode, K2 at decode: once a slice, and a decode's 10-slice chain runs
   with no host sync); ``num_slices + 4`` fields with ``[K]`` last.
 
-Both formats are byte-compatible with the JAX package's. Not ported yet:
-``SpatialCodec`` and the sharded functions.
+Both formats are byte-compatible with the JAX package's. The
+``sharded_*`` functions run every transform (supports, slice parameters,
+LRP) with H sharded over a mesh, and :class:`SpatialCodec` codes one image
+through them (:mod:`compression_tpu_torch.parallel.spatial`);
+:class:`~compression_tpu_torch.parallel.charm_sharded.ShardedCharmCodec`
+decodes a batch with its images sharded over a mesh.
 """
 
 from __future__ import annotations
@@ -55,19 +59,34 @@ from compression_tpu_torch.models.device_coding import (
 )
 from compression_tpu_torch.ops.math_ops import lower_bound
 from compression_tpu_torch.ops.round_ops import round_st
+from compression_tpu_torch.models.spatial_codec import SpatialCodecBase
 from compression_tpu_torch.parallel.pipeline import staggered_map
-from compression_tpu_torch.util.image import pad_to_multiple_np
+from compression_tpu_torch.parallel.spatial import (
+    as_shards,
+    gather_rows,
+    map_shards,
+    sharded_transform_apply,
+)
+from compression_tpu_torch.util.image import pad_to_multiple_np, to_uint8
 from compression_tpu_torch.util.numeric import slim_int
 
 __all__ = [
     "Config",
     "MS2020Model",
     "Codec",
+    "SpatialCodec",
     "compress",
     "decompress",
     "load_model",
     "make_codec",
     "make_loss_fn",
+    "sharded_analyze",
+    "sharded_encode_latents",
+    "sharded_hyper_analyze",
+    "sharded_slice_lrp",
+    "sharded_slice_params",
+    "sharded_supports",
+    "sharded_synthesize",
     "train",
 ]
 
@@ -468,3 +487,139 @@ def compress(model: MS2020Model, image: np.ndarray, coder: str = "host",
 
 def decompress(model: MS2020Model, data: bytes, device="cuda") -> np.ndarray:
     return make_codec(model, device).decompress(data)
+
+
+# -- spatially sharded transforms (images too large for one device) -----------
+#
+# CHARM shares bmshj2018's analysis and synthesis; its hyper pair and slice
+# transforms are SignalConv stacks too, so every transform of the codec
+# shards with the same halos. The slice chain and the entropy coding stay
+# with the host loop, as in the dense codec.
+
+sharded_analyze = bmshj2018.sharded_analyze
+sharded_synthesize = bmshj2018.sharded_synthesize
+
+
+def sharded_hyper_analyze(model: MS2020Model, y, mesh, axis="data"):
+    """H-sharded hyper-analysis: y -> z's shards (signed y in)."""
+    return sharded_transform_apply(model.hyper_analysis, y, mesh, axis)
+
+
+def sharded_supports(model: MS2020Model, z_hat, mesh, axis="data"):
+    """H-sharded support transforms: z_hat -> the shards of the mean
+    support and of the scale support."""
+    z_hat = as_shards(z_hat, mesh, axis)
+    return (sharded_transform_apply(model.mean_support, z_hat, mesh, axis),
+            sharded_transform_apply(model.scale_support, z_hat, mesh, axis))
+
+
+def _context(first, slices):
+    """Each shard's context: ``first``'s shard and the slices' (each a list
+    of shards), joined on the channels."""
+    return [torch.cat([f] + [s[d] for s in slices], -1) for d, f in enumerate(first)]
+
+
+def sharded_slice_params(model: MS2020Model, i: int, mu_sup, sigma_sup, decoded,
+                         mesh, axis="data"):
+    """H-sharded (mu_i, sigma_i): ``MS2020Model.slice_params`` on shards
+    (``decoded``: the decoded slices, each a list of shards; the same
+    context cap)."""
+    support = model._support(list(decoded))
+    mu = sharded_transform_apply(getattr(model, f"mean_t{i}"),
+                                 _context(mu_sup, support), mesh, axis)
+    sigma = sharded_transform_apply(getattr(model, f"scale_t{i}"),
+                                    _context(sigma_sup, support), mesh, axis)
+    return mu, map_shards(lambda s: lower_bound(s, SCALES_MIN), sigma)
+
+
+def sharded_slice_lrp(model: MS2020Model, i: int, mu_sup, decoded_with_current,
+                      mesh, axis="data"):
+    """H-sharded latent residual prediction: ``MS2020Model.slice_lrp`` on
+    shards."""
+    ctx = _context(mu_sup, model._support(list(decoded_with_current[:-1]))
+                   + list(decoded_with_current[-1:]))
+    lrp = sharded_transform_apply(getattr(model, f"lrp_t{i}"), ctx, mesh, axis)
+    return map_shards(lambda s: 0.5 * torch.tanh(s), lrp)
+
+
+def sharded_encode_latents(model: MS2020Model, x, mesh, axis="data"):
+    """The encode front (x -> y -> z) H-sharded (H divisible by ``mesh
+    size * 64``); returns the shards of y and of z."""
+    y = sharded_analyze(model, x, mesh, axis)
+    return y, sharded_hyper_analyze(model, y, mesh, axis)
+
+
+class SpatialCodec(SpatialCodecBase):
+    """Giant-image CHARM codec: one image, every transform H-sharded over
+    ``mesh`` (analysis, hyper-analysis, the supports, each slice's
+    parameter and LRP transforms, synthesis); the slice chain and the host
+    range coder stay with the host loop, as in the dense codec. The standard
+    ``num_slices + 3``-field blob. Encode and decode share each stage's
+    sharded function (``_supports``, ``_slice_rows``, ``_finish``) and the
+    dense codec's symbol arithmetic, so they agree on every symbol and row.
+
+    Args:
+      model: an :class:`MS2020Model` (moved to ``mesh.devices[0]``).
+      mesh: the shards' devices.
+    """
+
+    def __init__(self, model: MS2020Model, mesh, axis="data"):
+        super().__init__(make_codec(model, mesh.devices[0]), mesh, axis)
+
+    def _supports(self, z_hat: np.ndarray):
+        return sharded_supports(self.model, self._shards(z_hat), self.mesh, self.axis)
+
+    def _slice_rows(self, i, sups, decoded):
+        mu, sigma = sharded_slice_params(self.model, i, *sups, decoded, self.mesh, self.axis)
+        return mu, map_shards(self.codec.em.rows, sigma)
+
+    def _finish(self, i, sups, decoded, y_hat_i) -> None:
+        lrp = sharded_slice_lrp(self.model, i, sups[0], decoded + [y_hat_i],
+                                self.mesh, self.axis)
+        decoded.append(map_shards(torch.add, y_hat_i, lrp))
+
+    def _synth(self, decoded) -> np.ndarray:
+        y_hat = [torch.cat(parts, -1) for parts in zip(*decoded)]
+        x_hat = sharded_synthesize(self.model, y_hat, self.mesh, self.axis)
+        return gather_rows(map_shards(to_uint8, x_hat)).cpu().numpy()
+
+    def compress(self, image: np.ndarray) -> bytes:
+        """uint8 (H, W, 3) -> ``num_slices + 3``-field .tfci blob."""
+        codec, s = self.codec, self.cfg.slice_size
+        x, (h, w) = pad_to_multiple_np(np.asarray(image, np.uint8)[None], self._mult,
+                                       self.cfg.downscale)
+        with torch.inference_mode():
+            x = map_shards(lambda t: t.to(torch.float32) / 255.0, self._shards(x))
+            y, z = sharded_encode_latents(self.model, x, self.mesh, self.axis)
+            z_sym = self._z_symbols(z)
+            sups = self._supports(z_sym.astype(np.float32) + self._z_off)
+            decoded, syms, rows = [], [], []
+            for i in range(self.cfg.num_slices):
+                y_i = [t[..., i * s : (i + 1) * s] for t in y]
+                mu, rows_i = self._slice_rows(i, sups, decoded)
+                sym = map_shards(codec._center_round, y_i, mu)
+                self._finish(i, sups, decoded, map_shards(codec._apply_loc, sym, mu))
+                syms.append(gather_rows(sym).cpu().numpy())
+                rows.append(gather_rows(rows_i).cpu().numpy())
+        z_strings = codec.side_em.compress_symbols(z_sym)
+        strings = [codec.em.compress_symbols(a.reshape(1, -1), r.reshape(1, -1))[0]
+                   for a, r in zip(syms, rows)]
+        return codec._pack([strings], z_strings, (h, w), z_sym.shape[1:3])[0]
+
+    def decompress(self, blob: bytes) -> np.ndarray:
+        """``num_slices + 3``-field .tfci blob -> uint8 (H, W, 3)."""
+        codec = self.codec
+        strings, z_strings, xshape, zshape, _ = parse_blobs(
+            [blob], self.cfg.num_slices, False)
+        z_hat = codec.side_em.decompress(z_strings, tuple(int(v) for v in zshape))
+        with torch.inference_mode():
+            sups = self._supports(z_hat)
+            decoded = []
+            for i, slice_strings in enumerate(strings):
+                mu, rows = self._slice_rows(i, sups, decoded)
+                rows = gather_rows(rows).cpu().numpy()
+                values = codec.em.decode_symbols(slice_strings, rows.reshape(1, -1))
+                values = self._shards(slim_int(values.reshape(rows.shape)))
+                self._finish(i, sups, decoded, map_shards(codec._apply_loc, values, mu))
+            x_hat = self._synth(decoded)
+        return x_hat[0, : int(xshape[0]), : int(xshape[1]), :]

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ __all__ = [
     "pad_to_multiple",
     "pad_to_multiple_np",
     "unpad",
+    "to_uint8",
     "psnr",
     "psnr_np",
     "ssim",
@@ -195,18 +196,24 @@ def unpad(x, shape: Sequence[int]):
 
 
 def pad_to_multiple_np(
-    images: np.ndarray, multiple: int
+    images: np.ndarray, multiple: int, multiple_w: Optional[int] = None
 ) -> Tuple[np.ndarray, Tuple[int, int]]:
     """Edge-pads a batched (N, H, W, C) uint8 stack so H and W are multiples
-    of ``multiple``, before the host->device upload, so the device stage
-    sees whole latent grids. Returns (padded, (H, W))."""
+    of ``multiple`` (W of ``multiple_w`` where given), before the
+    host->device upload, so the device stage sees whole latent grids.
+    Returns (padded, (H, W))."""
     h, w = images.shape[1], images.shape[2]
-    hp, wp = -h % multiple, -w % multiple
+    hp, wp = -h % multiple, -w % (multiple if multiple_w is None else multiple_w)
     if hp or wp:
         images = np.pad(
             images, ((0, 0), (0, hp), (0, wp), (0, 0)), mode="edge"
         )
     return images, (h, w)
+
+
+def to_uint8(x: torch.Tensor) -> torch.Tensor:
+    """A float image in [0, 1] -> uint8, rounded and clipped."""
+    return torch.clamp(torch.round(x * 255.0), 0, 255).to(torch.uint8)
 
 
 def psnr_np(a: np.ndarray, b: np.ndarray, max_val: float = 255.0):

@@ -1,7 +1,8 @@
 """The port's tfci CLI on the CPU (``--device cpu``), at TPC_TINY_MODELS=1:
-each test of tests/test_cli.py against ``compression_tpu_torch.cli.tfci``,
-the flags that are not ported yet, the LPIPS weights found in the model
-directory, and the CLI's imports (no JAX, no JAX package, no PIL)."""
+each test of tests/test_cli.py against ``compression_tpu_torch.cli.tfci``
+(``--spatial N`` and ``train --num-devices N`` over N virtual CPU shards),
+the LPIPS weights found in the model directory, and the CLI's imports (no
+JAX, no JAX package, no PIL)."""
 
 import os
 import re
@@ -155,17 +156,44 @@ def test_full_cycle_alias_name_roundtrip(cli_env):
 
 
 def test_flags_not_ported_raise(cli_env):
-    """--spatial (giant-image mode) says it is not ported, before any other
-    work, and runs no other path."""
+    """--spatial exits as the JAX CLI does, before writing anything: on a
+    family without a SpatialCodec (b2018), and past the devices this
+    process sees (with --device cpu, a virtual shard a core)."""
     tmp_path, png, _ = cli_env
     tfci = str(tmp_path / "x.tfci")
-    with pytest.raises(SystemExit, match="--spatial is not ported"):
-        _main(["compress", "bls2017", png, tfci, "--spatial", "2"])
+    with pytest.raises(SystemExit, match="--spatial needs one of the codec families "
+                                         "bls2017/bmshj2018/mbt2018/ms2020/hific; "
+                                         "got 'b2018'"):
+        _main(["compress", "b2018-gdn-128-2", png, tfci, "--spatial", "2",
+               "--allow-random"])
+    too_many = os.cpu_count() + 1
+    with pytest.raises(SystemExit, match=f"--spatial {too_many}: this process sees "
+                                         f"{os.cpu_count()} device"):
+        _main(["compress", "bls2017", png, tfci, "--spatial", str(too_many),
+               "--allow-random"])
     assert not os.path.exists(tfci)
-    with open(tfci, "wb") as f:
-        f.write(b"")
-    with pytest.raises(SystemExit, match="--spatial is not ported"):
-        _main(["decompress", tfci, "--spatial", "2"])
+    assert _main(["compress", "bls2017", png, tfci, "--allow-random"]) == 0
+    with pytest.raises(SystemExit, match="this process sees"):
+        _main(["decompress", tfci, "--spatial", "-1", "--allow-random"])
+
+
+def test_spatial_flag_roundtrip(cli_env):
+    """--spatial N (tests/test_cli.py's test): compress + decompress with
+    the transforms H-sharded over N virtual CPU shards; the reconstruction
+    matches the dense decode of the same stream within one level. Also
+    bmshj2018 (a hyperprior family) over 2 shards."""
+    tmp_path, png, img = cli_env
+    assert _main(["train", "bls2017", "--steps", "2", "--batch-size", "2",
+                  "--patch-size", "32"]) == 0
+    for name, n, extra in (("bls2017", "4", []), ("bmshj2018", "2", ["--allow-random"])):
+        tfci = str(tmp_path / f"{name}.tfci")
+        out_png, dense_png = str(tmp_path / f"{name}.png"), str(tmp_path / f"{name}_d.png")
+        assert _main(["compress", name, png, tfci, "--spatial", n] + extra) == 0
+        assert _main(["decompress", tfci, out_png, "--spatial", n] + extra) == 0
+        assert _main(["decompress", tfci, dense_png] + extra) == 0
+        recon, dense = image_util.read_png(out_png), image_util.read_png(dense_png)
+        assert recon.shape == img.shape
+        np.testing.assert_allclose(recon.astype(np.int32), dense.astype(np.int32), atol=1)
 
 
 def test_jit_decompress(cli_env):
@@ -195,9 +223,29 @@ def test_runs_on_cuda_unless_told_otherwise(cli_env):
 
 
 def test_data_parallel_training_raises(cli_env):
-    with pytest.raises(NotImplementedError, match="num_devices > 1"):
+    """--num-devices that does not divide the batch: the JAX message."""
+    with pytest.raises(ValueError, match=r"batch_size \(2\) must be divisible by "
+                                         r"num_devices \(3\) for data parallelism"):
         _main(["train", "bls2017", "--steps", "1", "--batch-size", "2",
-               "--patch-size", "32", "--num-devices", "2"])
+               "--patch-size", "32", "--num-devices", "3"])
+
+
+def test_data_parallel_training(cli_env):
+    """train --num-devices 2 --device cpu: data-parallel steps over 2
+    virtual CPU shards; the checkpoint (the one-device layout) resumes
+    on one device, and compresses."""
+    from compression_tpu_torch.cli import registry
+    from compression_tpu_torch.models import common
+
+    tmp_path, png, _ = cli_env
+    state = os.path.splitext(registry.checkpoint_path("bls2017"))[0] + ".train.msgpack"
+    args = ["train", "bls2017", "--batch-size", "2", "--patch-size", "32"]
+    assert _main(args + ["--steps", "2", "--num-devices", "2"]) == 0
+    _, step, adam = common.load_checkpoint(state)
+    assert step == 2 and adam["count"] == 2
+    assert _main(args + ["--steps", "3"]) == 0
+    assert common.load_checkpoint(state)[1] == 3
+    assert _main(["compress", "bls2017", png, str(tmp_path / "dp.tfci")]) == 0
 
 
 def test_train_init_from_warm_start(cli_env):

@@ -9,7 +9,9 @@ the Codec API, training steps (HiFiC's joint G/D step among them), and the
 rest of the library (universal and power-law models, the soft-round and
 mixture priors and the log-CDF tails, SignalConv1D/3D with reflect,
 separable and RDFT kernels, the CDF quantizer on the card, the toy sources,
-tracing), against the CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
+tracing), and the multi-device layer on 4 shards of one card (a
+data-parallel step, a SpatialCodec, the image-parallel CHARM decode),
+against the CPU path. They skip without a GPU. This file imports neither JAX nor the JAX package, so on a machine
 without JAX run it alone, without the suite's conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -1239,3 +1241,87 @@ def test_trace_and_annotate_on_card(cuda, tmp_path):
     text = (tmp_path / "trace.json").read_text()
     assert "library" in text
     assert any(e.device_type.name == "CUDA" for e in prof.events())
+
+
+# -- the multi-device layer, 4 shards of one card -------------------------------
+
+
+def _card_mesh(cuda, n=4):
+    from compression_tpu_torch.parallel.data_parallel import Mesh
+
+    return Mesh((torch.device("cuda", torch.cuda.current_device()),) * n)
+
+
+def test_dp_step_on_card_matches_cpu(cuda):
+    """A 4-shard quantized (training=False) data-parallel step of a C = 32
+    model on one card against the same step over 4 CPU shards: loss 1e-4
+    relative, every mean gradient 1e-3 relative plus 1e-3 of its largest
+    entry (test_train_step_on_card_matches_cpu's tolerance); K1 6 launches a
+    shard."""
+    from compression_tpu_torch.parallel import make_dp_step, make_mesh
+    from compression_tpu_torch.parallel.data_parallel import shard_generators
+
+    cfg = bmshj2018.Config(num_filters=32, num_latents=32, num_hyperlatents=32)
+    x = torch.from_numpy(np.random.RandomState(0).rand(4, 128, 128, 3).astype(np.float32))
+    out = []
+    for mesh in (make_mesh(4, device="cpu"), _card_mesh(cuda)):
+        model = bmshj2018.BMSHJ2018Model(cfg, seed=3).to(mesh.devices[0])
+        step = make_dp_step(lambda m, b, g: bmshj2018.make_loss_fn(m, training=False)(b, g),
+                            torch.optim.SGD(model.parameters(), lr=1e-3), mesh=mesh)
+        before = fused_gdn.launches
+        metrics = step(model, x, shard_generators(0, mesh))
+        out.append((metrics["loss"].item(), fused_gdn.launches - before,
+                    {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (loss_cpu, k1_cpu, g_cpu), (loss_gpu, k1_gpu, g_gpu) = out
+    assert (k1_cpu, k1_gpu) == (0, 24)
+    np.testing.assert_allclose(loss_gpu, loss_cpu, rtol=1e-4)
+    for n in g_cpu:
+        torch.testing.assert_close(g_gpu[n], g_cpu[n], rtol=1e-3,
+                                   atol=1e-3 * g_cpu[n].abs().max().item(), msg=n)
+
+
+def test_spatial_codec_on_four_shards_of_the_card(cuda):
+    """bmshj2018 from the checkpoint, one 512x768 image over 4 shards of
+    the card: K1 3 launches a shard a transform pass (12 a compress), the
+    standard host blob decoded twice to the same image, y within 1e-4 of
+    its largest entry of the dense codec's, and the reconstruction within
+    one level of the dense decode of the same blob."""
+    from compression_tpu_torch.parallel.spatial import gather_rows
+
+    model = bmshj2018.load_model(CKPT)
+    image = (np.random.RandomState(5).rand(512, 768, 3) * 255).astype(np.uint8)
+    mesh = _card_mesh(cuda)
+    sc = bmshj2018.SpatialCodec(model, mesh)
+    before = fused_gdn.launches
+    blob = sc.compress(image)
+    assert fused_gdn.launches == before + 12
+    out = sc.decompress(blob)
+    np.testing.assert_array_equal(sc.decompress(blob), out)
+    assert out.shape == image.shape and len(PackedTensors(blob).describe()) == 5
+    x = torch.from_numpy(image[None]).to(mesh.devices[0]).float() / 255.0
+    with torch.inference_mode():
+        y = gather_rows(bmshj2018.sharded_analyze(sc.model, x, mesh))
+        want = sc.model.analysis(x)
+    torch.testing.assert_close(y, want, rtol=0, atol=1e-4 * want.abs().max().item())
+    dense = sc.codec.decompress(blob)
+    assert np.abs(dense.astype(np.int16) - out.astype(np.int16)).max() <= 1
+
+
+def test_sharded_charm_decode_on_card_is_byte_equal(cuda):
+    """A 32-filter ms2020 (40 latents in 10 slices) over 4 shards of the
+    card, 6 images (padded to 8): byte-equal to ``Codec.decompress_batch``
+    with both coders; K2 once a slice a shard on device-coded blobs."""
+    from compression_tpu_torch.parallel import ShardedCharmCodec
+
+    cfg = ms2020.Config(num_filters=32, num_latents=40, num_hyperlatents=32)
+    model = ms2020.MS2020Model(cfg, seed=1)
+    codec = ms2020.make_codec(model, torch.device("cuda", torch.cuda.current_device()))
+    images = (np.random.RandomState(8).rand(6, 128, 192, 3) * 255).astype(np.uint8)
+    sharded = ShardedCharmCodec(model, _card_mesh(cuda))
+    for coder in ("host", "device"):
+        blobs = codec.compress_batch(images, coder=coder)
+        before = rans.rans_decode.launches
+        out = sharded.decompress_batch(blobs)
+        launched = rans.rans_decode.launches - before
+        assert launched == (4 * cfg.num_slices if coder == "device" else 0)
+        np.testing.assert_array_equal(out, codec.decompress_batch(blobs))

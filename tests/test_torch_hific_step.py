@@ -214,8 +214,10 @@ def run_case(inputs, monkeypatch, overrides, step_idx, probe, lam):
 
 
 def test_step_takes_uint8_and_rejects_data_parallel(inputs):
-    """A uint8 batch is divided by 255 on its device; num_devices > 1 raises
-    (the data-parallel step is not ported)."""
+    """A uint8 batch is divided by 255 on its device; the data-parallel
+    step (num_devices > 1, on the cards unless a mesh is given) rejects a
+    batch that does not divide over its shards
+    (tests/test_torch_hific_dp.py tests the step itself)."""
     _, lp, _, model0, disc0 = inputs
     cfg = hific.HificConfig(**SMALL)
     x8 = (np.random.RandomState(3).rand(1, 64, 64, 3) * 255).astype(np.uint8)
@@ -226,5 +228,10 @@ def test_step_takes_uint8_and_rejects_data_parallel(inputs):
         metrics.append(step(batch, torch.Generator().manual_seed(0)))
     for k in metrics[0]:
         assert torch.equal(metrics[0][k], metrics[1][k]), k
-    with pytest.raises(NotImplementedError, match="item 17"):
-        hific.make_train_steps(model, disc, lp, cfg, num_devices=2)
+    from compression_tpu_torch.parallel import make_mesh
+    from compression_tpu_torch.parallel.data_parallel import shard_generators
+
+    mesh = make_mesh(2, device="cpu")
+    step, _, _ = hific.make_train_steps(model, disc, lp, cfg, num_devices=2, mesh=mesh)
+    with pytest.raises(ValueError, match="does not divide over 2 devices"):
+        step(torch.from_numpy(x8), shard_generators(0, mesh))

@@ -1,6 +1,7 @@
 """The last public names of the JAX package the port lacked:
 ``parallel.pipeline.pipeline_map``, ``util.image.pad_to_multiple`` and
-``unpad``, and the post-install smoke run ``all_tests``."""
+``unpad``, the post-install smoke run ``all_tests``, and the multi-device
+names of ``compression_tpu.parallel`` and its modules."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -56,3 +57,27 @@ def test_all_tests_runs_the_ports_tests(monkeypatch, tmp_path):
     monkeypatch.setattr(pytest, "main", lambda args: seen.append(args) or 0)
     assert all_tests.main() == 0
     assert seen == [[str(tmp_path / "test_torch_a.py"), str(tmp_path / "test_torch_b.py"), "-q"]]
+
+
+@pytest.mark.parametrize("module", ["parallel", "parallel.data_parallel", "parallel.spatial",
+                                    "parallel.charm_sharded"])
+def test_the_multi_device_names_are_present(module):
+    """Every name the JAX package's multi-device modules export, and every
+    family's sharded functions and SpatialCodec."""
+    import importlib
+
+    want = importlib.import_module(f"compression_tpu.{module}").__all__
+    got = importlib.import_module(f"compression_tpu_torch.{module}")
+    assert [n for n in want if not hasattr(got, n)] == []
+    if module == "parallel":
+        from compression_tpu.models import bls2017, bmshj2018, mbt2018, ms2020
+        from compression_tpu.models.hific import model as hific
+
+        from compression_tpu_torch.models import bls2017 as p_bls, bmshj2018 as p_bmshj
+        from compression_tpu_torch.models import mbt2018 as p_mbt, ms2020 as p_ms
+        from compression_tpu_torch.models.hific import model as p_hific
+
+        for jax_mod, port_mod in ((bls2017, p_bls), (bmshj2018, p_bmshj), (mbt2018, p_mbt),
+                                  (ms2020, p_ms), (hific, p_hific)):
+            names = [n for n in dir(jax_mod) if n.startswith("sharded_")] + ["SpatialCodec"]
+            assert [n for n in names if not hasattr(port_mod, n)] == [], port_mod.__name__

@@ -439,10 +439,13 @@ def test_train_model_on_cpu_with_resume(tmp_path, capsys):
 
 
 def test_train_model_refuses_what_is_not_ported():
+    """Data parallelism over devices the batch does not divide over: the
+    JAX package's ValueError, before any work."""
     model = bmshj2018.BMSHJ2018Model(bmshj2018.Config(**SMALL))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+    with pytest.raises(ValueError, match=r"batch_size \(8\) must be divisible by "
+                                         r"num_devices \(3\) for data parallelism"):
         common.train_model(model, bmshj2018.make_loss_fn(model),
-                           common.TrainConfig(num_devices=2), device="cpu")
+                           common.TrainConfig(num_devices=3), device="cpu")
 
 
 def test_cuda_is_the_default_for_training():
