@@ -1,0 +1,8 @@
+"""Host milliseconds an image in the window's decompress phases: the codec's
+own stage timer's host totals (dec/*) over the images."""
+
+from benchmark import readers
+
+
+def read(record):
+    return readers.host_ms_per_img(record, "decompress")

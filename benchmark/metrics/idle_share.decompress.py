@@ -1,0 +1,7 @@
+"""The device's idle share of the traced decompress phase: 1 - busy / wall."""
+
+from benchmark import readers
+
+
+def read(record):
+    return readers.idle_share(record, "decompress")
