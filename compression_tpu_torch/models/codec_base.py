@@ -39,7 +39,7 @@ from compression_tpu_torch.util import PackedTensors
 from compression_tpu_torch.util.device import resolve_device, strict_fp32
 from compression_tpu_torch.util.image import to_uint8
 from compression_tpu_torch.util.numeric import slim_int
-from compression_tpu_torch.util.profiling import StageTimer
+from compression_tpu_torch.util.profiling import StageTimer, span
 
 __all__ = ["DeviceCodec", "HyperpriorCodec"]
 
@@ -59,7 +59,7 @@ class DeviceCodec:
             self.stream = None
         self.cfg = model.config
         self.model = model.to(self.device).eval()
-        self.timer = StageTimer(self.device)
+        self.timer = StageTimer()
 
     @contextlib.contextmanager
     def _on_device(self):
@@ -222,7 +222,8 @@ class HyperpriorCodec(DeviceCodec):
         rows as NumPy arrays."""
         with self.timer.stage("enc/fetch"):
             if w.event is not None:
-                w.event.synchronize()
+                with span("wait/device"):
+                    w.event.synchronize()
             fit8, fit16 = (bool(v) for v in w.fits.cpu().numpy())
             if not fit16:
                 y_sym = w.y32.cpu().numpy()
@@ -256,7 +257,8 @@ class HyperpriorCodec(DeviceCodec):
         the reconstruction."""
         with self.timer.stage("dec/fetch_rows"):
             if w.event is not None:
-                w.event.synchronize()
+                with span("wait/device"):
+                    w.event.synchronize()
             rows = w.rows.cpu().numpy()
         n = len(w.y_strings)
         with self.timer.stage("dec/code_y"):
@@ -267,7 +269,8 @@ class HyperpriorCodec(DeviceCodec):
             event = self._event()
         with self.timer.stage("dec/fetch_image"):
             if event is not None:
-                event.synchronize()
+                with span("wait/device"):
+                    event.synchronize()
             x_hat = x_hat.numpy()
         return x_hat[:, : int(w.xshape[0]), : int(w.xshape[1]), :]
 

@@ -35,6 +35,7 @@ from compression_tpu_torch import convert
 from compression_tpu_torch.ops.math_ops import clip
 from compression_tpu_torch.util import image as image_util
 from compression_tpu_torch.util.device import resolve_device, strict_fp32
+from compression_tpu_torch.util.profiling import span
 
 __all__ = [
     "TrainConfig",
@@ -328,14 +329,19 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Adam,
                schedule: Callable[[int], float]):
     """One update: the loss on ``batch`` (float32, or uint8 normalised here,
     on the device), its gradients, and Adam at ``schedule(updates done)``.
-    Returns ``(loss, metrics)`` as device tensors (no host sync)."""
-    if batch.dtype == torch.uint8:
-        batch = batch.to(torch.float32) / 255.0
-    loss, metrics = loss_fn(batch, generator)
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    _set_lr(optimizer, schedule(_updates_done(optimizer)))
-    optimizer.step()
+    Returns ``(loss, metrics)`` as device tensors (no host sync). The three
+    parts are the spans ``train/forward``, ``train/backward`` and
+    ``train/optimizer``."""
+    with span("train/forward"):
+        if batch.dtype == torch.uint8:
+            batch = batch.to(torch.float32) / 255.0
+        loss, metrics = loss_fn(batch, generator)
+    with span("train/backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("train/optimizer"):
+        _set_lr(optimizer, schedule(_updates_done(optimizer)))
+        optimizer.step()
     return loss, metrics
 
 

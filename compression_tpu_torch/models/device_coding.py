@@ -32,6 +32,7 @@ import torch
 from compression_tpu_torch.parallel.pipeline import Work
 from compression_tpu_torch.util import PackedTensors
 from compression_tpu_torch.util.image import pad_to_multiple_np
+from compression_tpu_torch.util.profiling import span
 
 __all__ = [
     "rans_for",
@@ -237,7 +238,8 @@ def finish_encode_rans(codec, w) -> List[bytes]:
     the y words (one copy for each stream), pack the blobs (``[K]`` last)."""
     with codec.timer.stage("enc/fetch"):
         if w.event is not None:
-            w.event.synchronize()
+            with span("wait/device"):
+                w.event.synchronize()
         lengths, overflow = w.lengths.cpu().numpy(), w.overflow.cpu().numpy()
         z_sym = (w.z16 if bool(w.fit16) else w.z_sym).cpu().numpy().astype(np.int32)
     if overflow.any():
@@ -275,7 +277,8 @@ def finish_decode_rans(codec, w) -> np.ndarray:
     """Host stage: wait for the image; raise on a bad final rANS state."""
     with codec.timer.stage("dec/fetch_image"):
         if w.event is not None:
-            w.event.synchronize()
+            with span("wait/device"):
+                w.event.synchronize()
         image, ok = w.image.numpy(), w.ok.cpu().numpy()
     if not ok.all():
         raise ValueError("corrupt device-coded bitstream (rANS state)")

@@ -37,6 +37,7 @@ from compression_tpu_torch.layers.signal_conv import (
     conv_nhwc,
     truncated_normal_init,
 )
+from compression_tpu_torch.util.profiling import span
 
 __all__ = ["ChannelNorm", "ResidualBlock", "Encoder", "Generator", "Conv",
            "SpectralNormConv", "Discriminator", "same_pads"]
@@ -53,9 +54,10 @@ class ChannelNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        mu = torch.mean(x, dim=-1, keepdim=True)
-        var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)  # ddof 0
-        return (x - mu) * torch.rsqrt(var + self.epsilon) * self.gamma + self.beta
+        with span("hific/channel_norm"):
+            mu = torch.mean(x, dim=-1, keepdim=True)
+            var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)  # ddof 0
+            return (x - mu) * torch.rsqrt(var + self.epsilon) * self.gamma + self.beta
 
 
 def _conv(cin, cout, k, gen, **kw):

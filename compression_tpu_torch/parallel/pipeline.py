@@ -10,17 +10,32 @@ the steady state costs max(device, host) a batch instead of their sum.
 
 PyTorch's current stream is per thread, so both stages run inside
 ``torch.cuda.stream(stream)``; on the CPU the stream is None.
+
+Each batch gets a number, the batch id of the spans its two stages open
+(:func:`~compression_tpu_torch.util.profiling.in_batch`); the dispatching
+thread's waits for the oldest batch are ``pipeline/wait`` spans.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
+import itertools
 from typing import Callable, Iterable, Iterator, List, Optional
 
 import torch
 
+from compression_tpu_torch.util.profiling import in_batch, span
+
 __all__ = ["Pipeline", "Work", "pipeline_map", "stream_context", "staggered_map"]
+
+
+_BATCH_IDS = itertools.count()  # unique in the process: two pipelines may overlap
+
+
+def _wait(fut: cf.Future):
+    with span("pipeline/wait"):
+        return fut.result()
 
 
 class Work:
@@ -53,21 +68,22 @@ class Pipeline:
         self.depth = max(1, int(depth))
         self.stream = stream
 
-    def _host(self, work):
+    def _host(self, batch_id: int, work):
         with stream_context(self.stream), torch.inference_mode():
-            return self.host_fn(work)
+            return in_batch(batch_id, self.host_fn, work)
 
     def run(self, batches: Iterable) -> Iterator:
         with cf.ThreadPoolExecutor(max_workers=self.depth) as pool:
             inflight: List[cf.Future] = []
             for batch in batches:
+                batch_id = next(_BATCH_IDS)
                 with stream_context(self.stream), torch.inference_mode():
-                    work = self.device_fn(batch)
-                inflight.append(pool.submit(self._host, work))
+                    work = in_batch(batch_id, self.device_fn, batch)
+                inflight.append(pool.submit(self._host, batch_id, work))
                 while len(inflight) >= self.depth:
-                    yield inflight.pop(0).result()
+                    yield _wait(inflight.pop(0))
             for fut in inflight:
-                yield fut.result()
+                yield _wait(fut)
 
 
 def pipeline_map(device_fn: Callable, host_fn: Callable, batches: Iterable,

@@ -1243,6 +1243,55 @@ def test_trace_and_annotate_on_card(cuda, tmp_path):
     assert any(e.device_type.name == "CUDA" for e in prof.events())
 
 
+def test_a_launch_goes_to_the_span_open_on_its_thread(cuda):
+    """Kernels launched inside spans on two worker threads that live one
+    after the other (the second may get the first's pthread ident), on the
+    main thread, and by autograd's device thread under the main thread's
+    span, are each attributed to that span by the benchmark's join of device
+    activities to the runtime calls that launched them."""
+    import threading
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import spans as bench_spans
+    from compression_tpu_torch.util.profiling import recording, span
+
+    x = torch.randn(1024, 1024, device=cuda)
+    w = torch.randn(1024, 1024, device=cuda, requires_grad=True)
+    torch.cuda.synchronize()
+
+    def work(name):
+        with span(name):
+            for _ in range(3):
+                (x * 2.0).sin()
+            torch.cuda.synchronize()
+    with recording() as spans, profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.time_ns()
+        with span("main/forward"):
+            loss = (x @ w).cos().sum()
+        for name in ("worker/a", "worker/b"):
+            t = threading.Thread(target=work, args=(name,))
+            t.start()
+            t.join(timeout=60)
+            assert not t.is_alive()
+        with span("main/backward"):
+            loss.backward()
+        torch.cuda.synchronize()
+        t1 = time.time_ns()
+    main = threading.get_native_id()
+    got = bench_spans.by_span(prof, spans, {"all": (t0, t1)}, main)
+    device = got["all"]["device"]
+    activities, launches = bench_spans.join(prof)
+    seen = [(start - t0, corr, launches.get(corr)) for start, _, corr in activities
+            if t0 <= start < t1]
+    assert set(device) == {"main/forward", "worker/a", "worker/b", "main/backward"}, (
+        device, main, [(s.name, s.start_ns - t0, s.end_ns - t0, s.thread, s.pthread)
+                       for s in spans], seen)
+    assert all(v > 0 for v in device.values())
+
+
 # -- the multi-device layer, 4 shards of one card -------------------------------
 
 
