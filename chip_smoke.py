@@ -148,7 +148,12 @@ of a checkout. Phases, each fatal on failure:
     2,640), with times, bounds and serial floors; e. compress_iter /
     decompress_iter throughput with each coder; f. a profile of one round
     trip with each coder: device ms by kind (convolutions, ChannelNorm's
-    forward ops, K3, K2, copies, other) and the idle share;
+    forward ops, K3, K2, copies, other) and the idle share; g. the fused
+    ChannelNorm kernel (``csrc/channel_norm.cu``) at every call of an
+    encoded and a decoded batch (5 and 24 calls, with their bias, ReLU or
+    residual add) against its twin, timed beside its bytes bound (x, the
+    residual and out once each over 3.35 TB/s), the twin and
+    ``F.layer_norm`` with the same bias, ReLU and add (the yardstick only);
 14. the tfci CLI (``compression_tpu_torch.cli.tfci``) in a model directory
     of its own that holds ckpt/bmshj2018.msgpack as
     bmshj2018-hyperprior.msgpack, on a structured 768x512 PNG written by the
@@ -415,9 +420,9 @@ def phase_build() -> None:
         fn(*args)
         return time.perf_counter() - t0
 
-    with cf.ThreadPoolExecutor(3) as pool:
+    with cf.ThreadPoolExecutor(4) as pool:
         nvcc = {src: pool.submit(timed, cuda_build.build, src)
-                for src in ("gdn.cu", "rans.cu")}
+                for src in ("gdn.cu", "rans.cu", "channel_norm.cu")}
         gxx = pool.submit(timed, binding.get_lib)
         log("build: " + ", ".join(f"nvcc {src} {fut.result():.1f} s"
                                   for src, fut in nvcc.items())
@@ -826,13 +831,12 @@ def check_decode_designs(codec, tables, stream, rows, values, K, reps) -> None:
         f"{label} {ms:.4f} ms" for label, ms in times.items()))
 
 
-def check_small_against_cpu(module, model, hw=(128, 192), **compress_kw) -> int:
+def check_small_against_cpu(module, model, hw=(128, 192), **compress_kw) -> dict:
     """A small input through the card's codec and the CPU codec of the
     family ``module`` (same weights, same tables; ``compress_kw`` for a
     one-image codec's compress, b2018's quality): latents agree to 1e-4,
-    reconstructions to one level. Returns the K1 launches of the card's
-    round trip (the general GDN kernel's must be 0)."""
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
+    reconstructions to one level. Returns the launches of the card's round
+    trip (the general GDN kernel's must be 0)."""
 
     images = np.stack([structured_image(HEIGHT, WIDTH)[: hw[0], : hw[1]]] * 2)
     cpu_model = type(model)(model.config)
@@ -854,16 +858,16 @@ def check_small_against_cpu(module, model, hw=(128, 192), **compress_kw) -> int:
                          for im in images[:1]])
 
     round_trip(gpu)  # warm-up
-    fused_gdn.launches = fused_gdn_general.launches = 0
+    reset_launches()
     out_gpu = round_trip(gpu)
-    launches = fused_gdn.launches
-    if fused_gdn_general.launches:
-        raise AssertionError(f"the general GDN kernel ran {fused_gdn_general.launches} times")
+    launches = read_launches()
+    if launches["gdn_general"]:
+        raise AssertionError(f"the general GDN kernel ran {launches['gdn_general']} times")
     out_cpu = round_trip(cpu)
     diff = np.abs(out_gpu.astype(np.int16) - out_cpu.astype(np.int16))
     log(f"  {hw[0]}x{hw[1]} input vs CPU path ({type(model).__name__}): max |diff| "
         f"{diff.max()} levels, "
-        f"{100 * np.mean(diff == 0):.3f}% equal; K1 launches {launches}")
+        f"{100 * np.mean(diff == 0):.3f}% equal; launches {launches}")
     if diff.max() > 1 or np.mean(diff == 0) < 0.99:
         raise AssertionError("card and CPU reconstructions disagree")
     return launches
@@ -875,35 +879,42 @@ def num_streams(codec) -> int:
 
 
 def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
-                cpu_check: bool = True, gdn: int = 6, gdn_general: int = 0) -> tuple:
+                cpu_check: bool = True, gdn: int = 6, gdn_general: int = 0,
+                norm: tuple = (0, 0)) -> tuple:
     """A hyperprior codec's host-coded path: launches over exactly
     compress_batch + decompress_batch (``gdn`` for K1, ``gdn_general`` for
-    the general GDN kernel), byte-identical
+    the general GDN kernel, ``norm`` for the fused ChannelNorm's in the
+    compress and in the decompress), byte-identical
     re-compression, batch-1 decode equal to the batch-8 decode, PSNR and
     bpp (PSNR held to ``min_psnr`` where the weights are trained ones), and
     with ``cpu_check`` a small input against the CPU path of ``module``.
     Returns (blobs, reconstruction, launches)."""
     from compression_tpu_torch.models.device_coding import num_fields
 
+    from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.util.image import psnr_np
 
     codec.compress_batch(images[:1])  # warm-up: cuDNN handles, kernel load
 
     # The path's run: the counts cover exactly compress + decompress.
-    fused_gdn.launches = fused_gdn_general.launches = 0
+    fused_gdn.launches = fused_gdn_general.launches = fused_channel_norm.launches = 0
     t0 = time.perf_counter()
     blobs = codec.compress_batch(images)
     t1 = time.perf_counter()
+    norm_c = fused_channel_norm.launches
     out = codec.decompress_batch(blobs)
     t2 = time.perf_counter()
-    launches = {"gdn": fused_gdn.launches, "gdn_general": fused_gdn_general.launches}
+    launches = {"gdn": fused_gdn.launches, "gdn_general": fused_gdn_general.launches,
+                "channel_norm": fused_channel_norm.launches}
     log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress {1e3 * (t1 - t0):.1f} ms, "
         f"decompress {1e3 * (t2 - t1):.1f} ms; K1 launches {launches['gdn']}, general "
-        f"GDN kernel {launches['gdn_general']}")
-    if launches != {"gdn": gdn, "gdn_general": gdn_general}:
-        raise AssertionError(f"expected {gdn} K1 and {gdn_general} general GDN launches, "
-                             f"saw {launches}")
+        f"GDN kernel {launches['gdn_general']}, ChannelNorm's kernel {norm_c} + "
+        f"{launches['channel_norm'] - norm_c}")
+    if (launches != {"gdn": gdn, "gdn_general": gdn_general, "channel_norm": sum(norm)}
+            or norm_c != norm[0]):
+        raise AssertionError(f"expected {gdn} K1, {gdn_general} general GDN and {norm} "
+                             f"ChannelNorm launches, saw {launches} ({norm_c} compressing)")
     if out.shape != images.shape or out.dtype != np.uint8:
         raise AssertionError(f"bad output {out.shape} {out.dtype}")
     fields = num_streams(codec) + 3
@@ -928,34 +939,42 @@ def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
 
 
 def phase_codec_device(codec, images, host_blobs, host_out,
-                       label: str = "codec (device coder)", gdn: int = 6) -> dict:
+                       label: str = "codec (device coder)", gdn: int = 6,
+                       norm: tuple = (0, 0)) -> dict:
     """A device-coded path: launches over exactly compress_batch +
-    decompress_batch (K3 2 and K2 1 a y stream, K1 ``gdn``), and its outputs
+    decompress_batch (K3 2 and K2 1 a y stream, K1 ``gdn``, the fused
+    ChannelNorm ``norm`` in the compress and in the decompress), and its outputs
     against the host coder's; each y stream within 1.1x the host coder's
     string for it plus the lane states. The general GDN kernel must not run."""
     from compression_tpu_torch.codec import rans
+    from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.util import PackedTensors
     from compression_tpu_torch.util.image import psnr_np
 
     codec.decompress_batch(codec.compress_batch(images[:1], coder="device"))  # warm-up
     rans.rans_encode.launches = rans.rans_decode.launches = fused_gdn.launches = 0
-    fused_gdn_general.launches = 0
+    fused_gdn_general.launches = fused_channel_norm.launches = 0
     rans.rans_decode.variant_launches.update({"on_chip": 0, "global": 0})
     t0 = time.perf_counter()
     blobs = codec.compress_batch(images, coder="device")
     t1 = time.perf_counter()
+    norm_c = fused_channel_norm.launches
     out = codec.decompress_batch(blobs)
     t2 = time.perf_counter()
     launches = {"rans_encode": rans.rans_encode.launches,
                 "rans_decode": rans.rans_decode.launches, "gdn": fused_gdn.launches,
-                "gdn_general": fused_gdn_general.launches}
+                "gdn_general": fused_gdn_general.launches,
+                "channel_norm": fused_channel_norm.launches}
     log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress "
-        f"{1e3 * (t1 - t0):.1f} ms, decompress {1e3 * (t2 - t1):.1f} ms; launches {launches}")
+        f"{1e3 * (t1 - t0):.1f} ms, decompress {1e3 * (t2 - t1):.1f} ms; launches {launches} "
+        f"(ChannelNorm's kernel {norm_c} compressing)")
     S = num_streams(codec)
-    if launches != {"rans_encode": 2 * S, "rans_decode": S, "gdn": gdn, "gdn_general": 0}:
+    if launches != {"rans_encode": 2 * S, "rans_decode": S, "gdn": gdn, "gdn_general": 0,
+                    "channel_norm": sum(norm)} or norm_c != norm[0]:
         raise AssertionError(f"expected K3 {2 * S} (fields, lanes a stream), K2 {S}, "
-                             f"K1 {gdn} launches, saw {launches}")
+                             f"K1 {gdn}, ChannelNorm {norm} launches, saw {launches} "
+                             f"({norm_c} compressing)")
     variants = dict(rans.rans_decode.variant_launches)
     if variants != {"on_chip": S, "global": 0}:
         raise AssertionError(f"expected K2's on-chip variant {S} times, saw {variants}")
@@ -1030,9 +1049,9 @@ def profile_device(label: str, run, steps: int = 1, top: int = 0) -> dict:
 
     forward = archs.ChannelNorm.forward
 
-    def traced(self, x):
+    def traced(self, *args, **kwargs):
         with record_function("hific.ChannelNorm"):
-            return forward(self, x)
+            return forward(self, *args, **kwargs)
 
     archs.ChannelNorm.forward = traced
     try:
@@ -1264,8 +1283,6 @@ def count_step_launches(model, make_loss_fn, label: str, gdn: int = 6,
     ``model`` (Adam as ``tcfg`` sets it), the counts set to 0 just before
     and read just after; ``gdn`` K1 and ``gdn_general`` general GDN
     launches expected."""
-    from compression_tpu_torch.codec import rans
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.models import common
 
     tcfg = tcfg or common.TrainConfig()
@@ -1276,17 +1293,13 @@ def count_step_launches(model, make_loss_fn, label: str, gdn: int = 6,
     x = torch.from_numpy(next(train_batches(TRAIN_BATCH))).to(DEVICE)
     common.train_step(model, optimizer, loss_fn, x, gen, common.lr_schedule(tcfg))  # warm-up
     sync()
-    fused_gdn.launches = rans.rans_encode.launches = rans.rans_decode.launches = 0
-    fused_gdn_general.launches = 0
+    reset_launches()
     loss, _ = common.train_step(model, optimizer, loss_fn, x, gen, common.lr_schedule(tcfg))
     sync()
-    launches = {"gdn": fused_gdn.launches, "rans_encode": rans.rans_encode.launches,
-                "rans_decode": rans.rans_decode.launches,
-                "gdn_general": fused_gdn_general.launches}
+    launches = read_launches()
     log(f"  {label} one training step of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}: launches "
         f"{launches} (loss {loss.item():.4f})")
-    if launches != {"gdn": gdn, "rans_encode": 0, "rans_decode": 0,
-                    "gdn_general": gdn_general}:
+    if launches != launches_of(gdn=gdn, general=gdn_general):
         raise AssertionError(f"{label}: expected K1 {gdn}, K3 0, K2 0, general GDN "
                              f"{gdn_general} launches, saw {launches}")
     return launches
@@ -1530,7 +1543,6 @@ def phase_factorized(card: str) -> dict:
     """Phase 9: bls2017 and bmshj2018-factorized at full width: training
     from the seed, then the one-image codec over the 8 images; and an
     8-filter model's round trip (K1 at C = 8, padded to 32)."""
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.models import bls2017
     from compression_tpu_torch.util import PackedTensors
     from compression_tpu_torch.util.image import psnr_np
@@ -1545,12 +1557,12 @@ def phase_factorized(card: str) -> dict:
         codec = bls2017.Codec(model, device=DEVICE)
         codec.decompress(codec.compress(images[0]))  # warm-up
         # The path's run: the counts cover exactly one compress + decompress.
-        fused_gdn.launches = fused_gdn_general.launches = 0
+        reset_launches()
         blob = codec.compress(images[0])
         first = codec.decompress(blob)
-        launches = {"gdn": fused_gdn.launches, "gdn_general": fused_gdn_general.launches}
+        launches = read_launches()
         want = 4 if cfg.arch == "bls2017" else 6
-        if launches != {"gdn": want, "gdn_general": 0}:
+        if launches != launches_of(gdn=want):
             raise AssertionError(f"9 {name}: expected {want} K1 launches, saw {launches}")
         t0 = time.perf_counter()
         blobs = [codec.compress(image) for image in images]
@@ -1585,12 +1597,12 @@ def phase_factorized(card: str) -> dict:
     # Any GDN width through K1 end to end: an 8-filter model's round trip.
     tiny = bls2017.BLS2017Model(bls2017.Config(num_filters=8), seed=0)
     tiny_launches = check_small_against_cpu(bls2017, tiny, hw=(96, 130))
-    if tiny_launches != 4:
+    if tiny_launches != launches_of(gdn=4):
         raise AssertionError(f"9 8 filters: expected 4 K1 launches, saw {tiny_launches}")
     codec = bls2017.Codec(tiny, device=DEVICE)
     image = structured_image(HEIGHT, WIDTH)[:96, :130]
     results["bls2017 8 filters"] = dict(
-        launches={"gdn": tiny_launches, "gdn_general": 0},  # held in check_small_against_cpu
+        launches=tiny_launches,
         k1_max_abs_err=check_k1_on_path(tiny, lambda: codec.decompress(codec.compress(image)),
                                         "9 bls2017 8 filters"))
     return results
@@ -1724,7 +1736,6 @@ def phase_b2018(card: str) -> dict:
     """Phase 11: the two b2018 models at full width: train_model from the
     seed, the launches of a training step, then the one-image codec over
     the 8 images at each quality."""
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.models import b2018, common
     from compression_tpu_torch.models.device_coding import num_fields
     from compression_tpu_torch.util import PackedTensors
@@ -1744,11 +1755,11 @@ def phase_b2018(card: str) -> dict:
         codec = b2018.Codec(model, device=DEVICE)
         codec.decompress(codec.compress(images[0], quality=1))  # warm-up
         # The path's run: the counts cover exactly one compress + decompress.
-        fused_gdn.launches = fused_gdn_general.launches = 0
+        reset_launches()
         blob = codec.compress(images[0], quality=cfg.num_qualities)
         first = codec.decompress(blob)
-        launches = {"gdn": fused_gdn.launches, "gdn_general": fused_gdn_general.launches}
-        if launches != {"gdn": gdn, "gdn_general": 0}:
+        launches = read_launches()
+        if launches != launches_of(gdn=gdn):
             raise AssertionError(f"11 {name}: expected {gdn} K1 launches, saw {launches}")
         per_q = {}
         for quality in range(1, cfg.num_qualities + 1):
@@ -1782,7 +1793,7 @@ def phase_b2018(card: str) -> dict:
         k1_err = (check_k1_on_path(codec.model, lambda: codec.decompress(
             codec.compress(images[0], quality=2)), f"11 {name}") if gdn else None)
         small = check_small_against_cpu(b2018, codec.model, hw=(96, 130), quality=2)
-        if small != gdn:
+        if small != launches_of(gdn=gdn):
             raise AssertionError(f"11 {name}: the small round trip launched K1 {small} times")
         results[name] = dict(launches=launches, train=train, qualities=per_q,
                              k1_max_abs_err=k1_err)
@@ -2082,8 +2093,6 @@ def count_hific_step_launches(cfg) -> dict:
     """13b: the training path's run: one joint step of a batch of
     TRAIN_BATCH crops, the counts set to 0 just before and read just after;
     then a profile of 3 steps by kind."""
-    from compression_tpu_torch.codec import rans
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.models import hific
 
     model = hific.HificModel(cfg, seed=1).to(DEVICE)
@@ -2093,18 +2102,16 @@ def count_hific_step_launches(cfg) -> dict:
     x = torch.from_numpy(next(train_batches(TRAIN_BATCH))).to(DEVICE)
     step(x, gen)  # warm-up
     sync()
-    fused_gdn.launches = rans.rans_encode.launches = rans.rans_decode.launches = 0
-    fused_gdn_general.launches = 0
+    reset_launches()
     metrics = step(x, gen)
     sync()
-    launches = {"gdn": fused_gdn.launches, "rans_encode": rans.rans_encode.launches,
-                "rans_decode": rans.rans_decode.launches,
-                "gdn_general": fused_gdn_general.launches}
+    launches = read_launches()
     log(f"  13b one joint step of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}: launches "
         f"{launches} (g_loss {metrics['g_loss'].item():.4f})")
-    if launches != {"gdn": 0, "rans_encode": 0, "rans_decode": 0, "gdn_general": 0}:
-        raise AssertionError(f"13b: expected K1 0, K3 0, K2 0, general GDN 0 launches, "
-                             f"saw {launches}")
+    norm = sum(hific_norm_launches(cfg))  # one forward of the encoder and the generator
+    if launches != launches_of(norm=norm):
+        raise AssertionError(f"13b: expected K1 0, K3 0, K2 0, general GDN 0, ChannelNorm "
+                             f"{norm} launches, saw {launches}")
     prof = profile_device(f"13b 3 joint steps of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}",
                           lambda: [step(x, gen) for _ in range(3)], steps=3, top=8)
     return launches, prof
@@ -2150,11 +2157,131 @@ def train_hific(cfg, card: str):
     return model, numbers
 
 
+def channel_norm_calls(cfg) -> dict:
+    """13g: the ChannelNorm calls of an encoded and a decoded batch of BATCH
+    HEIGHTxWIDTH images, as ``(label, (N, H, W, C), (bias, relu, residual),
+    calls a batch)``: the encoder's five (bias and ReLU); the generator's
+    ``norm_in`` (plain), ``norm_head`` (bias), each residual block's
+    ``norm0`` (bias and ReLU) and ``norm1`` (bias and the residual), the
+    up-path's four (bias and ReLU)."""
+    h, w = HEIGHT // 16, WIDTH // 16
+    encode = [(f"encoder norm{i}", (BATCH, HEIGHT >> i, WIDTH >> i, c), (True, True, False), 1)
+              for i, c in enumerate((60, 120, 240, 480, 960))]
+    blocks = cfg.num_residual_blocks
+    decode = [("norm_in", (BATCH, h, w, cfg.num_latents), (False, False, False), 1),
+              ("norm_head", (BATCH, h, w, 960), (True, False, False), 1),
+              ("res norm0", (BATCH, h, w, 960), (True, True, False), blocks),
+              ("res norm1", (BATCH, h, w, 960), (True, False, True), blocks)]
+    decode += [(f"upnorm{i}", (BATCH, h << (i + 1), w << (i + 1), c), (True, True, False), 1)
+               for i, c in enumerate((480, 240, 120, 60))]
+    return {"encode": encode, "decode": decode}
+
+
+def channel_norm_bytes(shape, flags) -> int:
+    """Bytes of one call read and written once: x, out and the residual,
+    gamma, beta and the bias."""
+    n, c = int(np.prod(shape)), shape[-1]
+    bias, _, residual = flags
+    return 4 * (n * (2 + residual) + c * (2 + bias))
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` replayed from a CUDA graph over
+    ``reps`` back-to-back replays: the host's enqueue of a call (the
+    wrapper's checks, allocations and launch) never holds the card, as it
+    does not on a path that keeps the card busy."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
+def time_channel_norm(cfg, card: str, reps: int) -> dict:
+    """13g: the fused ChannelNorm against its twin (within 4 ulps; whether
+    bit for bit is logged) at every call of an encoded and a decoded batch,
+    and its time beside its bytes bound, the
+    twin's and ``F.layer_norm``'s with the same bias, ReLU and add, each
+    replayed from a CUDA graph (:func:`graph_ms`), in turns (twin, kernel,
+    yardstick, kernel, twin); each call's time counted as often as a batch
+    makes it."""
+    import torch.nn.functional as F
+
+    from compression_tpu_torch.layers.channel_norm_kernel import (
+        fused_channel_norm, fused_channel_norm_reference)
+
+    def library(x, gamma, beta, bias, residual, relu):
+        # Yardstick only (never called by the port): torch's fused layer
+        # norm, with the bias added before it and the ReLU or add after.
+        v = x if bias is None else x + bias
+        out = F.layer_norm(v, (x.shape[-1],), gamma, beta, 1e-3)
+        if relu:
+            out = torch.relu_(out)
+        return out if residual is None else out.add_(residual)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {}
+    for phase, calls in channel_norm_calls(cfg).items():
+        total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        rows_out = []
+        for label, shape, (bias, relu, residual), count in calls:
+            c = shape[-1]
+            x = torch.randn(shape, device="cuda", generator=gen).mul_(5).add_(3)
+            gamma = torch.randn(c, device="cuda", generator=gen).mul_(0.3).add_(1)
+            beta = torch.randn(c, device="cuda", generator=gen).mul_(0.3)
+            b = torch.randn(c, device="cuda", generator=gen) if bias else None
+            r = torch.randn(shape, device="cuda", generator=gen) if residual else None
+            args = (x, gamma, beta, b, r, relu)
+            with torch.inference_mode():
+                got = fused_channel_norm(*args)
+                want = fused_channel_norm_reference(*args)
+                err = (got - want).abs().max().item()
+                lib_err = (library(*args) - want).abs().max().item()
+                # Bit for bit where ATen's sum order is the kernel's (the card
+                # test test_channel_norm_sums_rows_as_torch_mean holds that);
+                # held here to 4 ulps of the largest output.
+                bit_equal = torch.equal(got, want)
+                if err > 4 * torch.finfo(torch.float32).eps * want.abs().max().item():
+                    raise AssertionError(f"13g {label}: kernel off its twin by {err:.3e}")
+                del got, want
+                runs = {"plain_ms": [], "ms": [], "library_ms": []}
+                for key, fn in (("plain_ms", fused_channel_norm_reference),
+                                ("ms", fused_channel_norm), ("library_ms", library),
+                                ("ms", fused_channel_norm),
+                                ("plain_ms", fused_channel_norm_reference)):
+                    runs[key].append(graph_ms(lambda: fn(*args), reps))
+            times = {k: sum(v) / len(v) for k, v in runs.items()}
+            bound = 1e3 * channel_norm_bytes(shape, (bias, relu, residual)) / PEAK_HBM_BYTES
+            for k in ("ms", "plain_ms", "library_ms"):
+                total[k] += count * times[k]
+            total["bound_ms"] += count * bound
+            share = 100 * bound / times["ms"]
+            rows_out.append(dict(label=label, shape=shape, count=count, bound_ms=bound,
+                                 bound_share=share, max_abs_err=err, bit_equal=bit_equal,
+                                 **times))
+            log(f"  13g {phase} {label} {'x'.join(map(str, shape))} (bias {bias:d} relu "
+                f"{relu:d} residual {residual:d}) x{count}: kernel {times['ms']:.4f} ms, "
+                f"{share:.1f}% of its bytes bound {bound:.4f} ms; twin "
+                f"{times['plain_ms']:.4f} ms; layer_norm {times['library_ms']:.4f} ms; "
+                f"max_abs_err {err:.3e}{' (bit-equal)' if bit_equal else ''} (layer_norm "
+                f"{lib_err:.3e})")
+            del x, r, args
+        log(f"13g ChannelNorm, the {phase} of a batch of {BATCH} ({card}): kernel "
+            f"{total['ms']:.4f} ms ({total['ms'] / BATCH:.4f} an image), bound "
+            f"{total['bound_ms']:.4f} ms (bytes), {100 * total['bound_ms'] / total['ms']:.1f}% "
+            f"of it; twin {total['plain_ms']:.4f} ms; layer_norm {total['library_ms']:.4f} ms")
+        result[phase] = dict(calls=rows_out, **total)
+    return result
+
+
 def phase_hific(card: str, reps: int, batches: int) -> dict:
     """Phase 13: HiFiC hific-mi at full width: one joint step against the
     CPU, training from the seed and a step's launches, the codec of the
     trained model with both coders, K3 and K2 on its symbols and rows,
-    throughput and a profile by kind."""
+    throughput, a profile by kind, and the fused ChannelNorm's kernel."""
     from compression_tpu_torch.models import hific
     from compression_tpu_torch.util.image import pad_to_multiple_np
 
@@ -2168,9 +2295,11 @@ def phase_hific(card: str, reps: int, batches: int) -> dict:
     codec = hific.Codec(model, device=DEVICE)
     images = structured_images()
     host_blobs, host_out, host_launches = phase_codec(
-        codec, images, hific, label="13c hific codec", min_psnr=None, gdn=0)
+        codec, images, hific, label="13c hific codec", min_psnr=None, gdn=0,
+        norm=hific_norm_launches(cfg))
     launches = phase_codec_device(codec, images, host_blobs, host_out,
-                                  label="13c hific codec (device coder)", gdn=0)
+                                  label="13c hific codec (device coder)", gdn=0,
+                                  norm=hific_norm_launches(cfg))
     x = torch.from_numpy(pad_to_multiple_np(images, 64)[0]).to(DEVICE).float() / 255.0
     with torch.no_grad():
         coded = float(codec.model.coded_bpp(x))
@@ -2186,8 +2315,10 @@ def phase_hific(card: str, reps: int, batches: int) -> dict:
         f"13f hific, {coder} coder, compress_batch + decompress_batch of {BATCH}",
         lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)), top=8)
         for coder in ("host", "device")}
+    norm = time_channel_norm(cfg, card, reps)
     return dict(train=train, host_launches=host_launches, launches=launches, rans=rans_k,
-                throughput=rates, profile=profiles, coded_bpp=coded, host_bpp=host_bpp)
+                throughput=rates, profile=profiles, coded_bpp=coded, host_bpp=host_bpp,
+                channel_norm=norm, norm_launches=hific_norm_launches(cfg))
 
 
 # -- phase 14: the tfci CLI ---------------------------------------------------
@@ -2212,23 +2343,35 @@ CLI_GDN = {"bls2017": 2, "bmshj2018-factorized": 3, "mbt2018": 3,
 
 def reset_launches() -> None:
     from compression_tpu_torch.codec import rans
+    from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
 
     fused_gdn.launches = rans.rans_encode.launches = rans.rans_decode.launches = 0
-    fused_gdn_general.launches = 0
+    fused_gdn_general.launches = fused_channel_norm.launches = 0
 
 
 def read_launches() -> dict:
     from compression_tpu_torch.codec import rans
+    from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
 
     return {"gdn": fused_gdn.launches, "rans_encode": rans.rans_encode.launches,
             "rans_decode": rans.rans_decode.launches,
-            "gdn_general": fused_gdn_general.launches}
+            "gdn_general": fused_gdn_general.launches,
+            "channel_norm": fused_channel_norm.launches}
 
 
-def launches_of(gdn: int = 0, enc: int = 0, dec: int = 0, general: int = 0) -> dict:
-    return {"gdn": gdn, "rans_encode": enc, "rans_decode": dec, "gdn_general": general}
+def launches_of(gdn: int = 0, enc: int = 0, dec: int = 0, general: int = 0,
+                norm: int = 0) -> dict:
+    return {"gdn": gdn, "rans_encode": enc, "rans_decode": dec, "gdn_general": general,
+            "channel_norm": norm}
+
+
+def hific_norm_launches(cfg) -> tuple:
+    """The fused ChannelNorm's launches of one HiFiC encode and one decode of
+    a batch: the encoder's 5 norms; the generator's norm_in, norm_head, two a
+    residual block and the up-path's 4."""
+    return 5, 2 + 2 * cfg.num_residual_blocks + 4
 
 
 def tfci(argv: list, want=None, device: str = None, label: str = None) -> tuple:
@@ -2299,7 +2442,7 @@ def cli_profile(label: str, argv: list, launches: dict) -> None:
         ("gdn", "K1"), ("rans_encode", "K3"), ("rans_decode", "K2"),
         ("gdn_general", "gdn_general"))}
     log(f"  traced kernels of tfci {label}: {seen}")
-    if seen != launches:
+    if seen != {k: launches[k] for k in seen}:
         raise AssertionError(f"tfci {label}: the trace shows {seen}, the wrappers {launches}")
 
 
@@ -2332,21 +2475,24 @@ def cli_tiny_families(tmp: pathlib.Path, png: str) -> dict:
 
 def cli_round_trips(tmp, png, name, coders, extra) -> dict:
     """compress then decompress with each coder; both decodes equal."""
+    from compression_tpu_torch.models import hific
     from compression_tpu_torch.util.image import read_png
 
     gdn, decoded, launches = CLI_GDN[name], {}, {}
     streams = 4 if name == "ms2020" else 1  # TPC_TINY_MODELS: 4 slices
+    norm_c, norm_d = (hific_norm_launches(hific.get_config(name)) if name.startswith("hific")
+                      else (0, 0))
     for coder in coders:
         dev = coder == "device"
         tfci_file, out_png = str(tmp / f"{name}_{coder}.tfci"), str(tmp / f"{name}_{coder}.png")
         flag = ["--device-coder"] if dev else []
         launches[f"compress ({coder})"] = tfci(
             ["compress", name, png, tfci_file, *extra, *flag],
-            want=launches_of(gdn, 2 * streams if dev else 0))[1]
+            want=launches_of(gdn, 2 * streams if dev else 0, norm=norm_c))[1]
         launches[f"decompress ({coder})"] = tfci(
             ["decompress", tfci_file, out_png, *(["--allow-random"] if "--allow-random" in extra
                                                  else [])],
-            want=launches_of(gdn, 0, streams if dev else 0))[1]
+            want=launches_of(gdn, 0, streams if dev else 0, norm=norm_d))[1]
         decoded[coder] = read_png(out_png)
         if decoded[coder].shape != (HEIGHT, WIDTH, 3):
             raise AssertionError(f"{name}: decoded shape {decoded[coder].shape}")
@@ -3780,6 +3926,17 @@ def main() -> int:
     if unread or ran:
         raise AssertionError(f"the general GDN kernel's count was not read on {unread}, "
                              f"or it ran on a registry path: {ran}")
+    # The fused ChannelNorm: read on every path, launched on HiFiC's and on no other.
+    every = {**paths, **wide_paths}
+    unread = [path for path, counts in every.items() if "channel_norm" not in counts]
+    def on_hific(path):  # "bmshj2018/hific-mi data-parallel ..." names both families
+        return "hific" in path.replace("bmshj2018/hific-mi", "")
+
+    amiss = {path: counts["channel_norm"] for path, counts in every.items()
+             if "channel_norm" in counts and bool(counts["channel_norm"]) != on_hific(path)}
+    if unread or amiss:
+        raise AssertionError(f"ChannelNorm's kernel count was not read on {unread}, or it ran "
+                             f"off HiFiC's paths or not on them: {amiss}")
 
     kernels = [{
         "name": "gdn",
@@ -3807,6 +3964,24 @@ def main() -> int:
         "paths": {path: counts["gdn_general"] for path, counts in {**paths, **wide_paths}.items()},
         "checks": any_gdn["general"]["checks"],
     }]
+    norm = hi["channel_norm"]
+    kernels.append({
+        "name": "channel_norm",
+        "route": "cuda",
+        "source": "compression_tpu_torch/csrc/channel_norm.cu",
+        "replaces": None,  # the JAX package's ChannelNorm is plain jnp, no TPU kernel
+        "launches": hi["launches"]["channel_norm"],  # HiFiC's device-coded round trip
+        "per_batch": dict(zip(("compress", "decompress"), hi["norm_launches"])),
+        "max_abs_err": max(row["max_abs_err"] for phase in ("encode", "decode")
+                           for row in norm[phase]["calls"]),
+        "bit_equal": all(row["bit_equal"] for phase in ("encode", "decode")
+                         for row in norm[phase]["calls"]),
+        **{k: {phase: norm[phase][k] for phase in ("encode", "decode")}
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "bytes",
+        "train_launches": hi["train"]["launches"]["channel_norm"],
+        "paths": {path: counts["channel_norm"] for path, counts in every.items()},
+    })
     for name, replaces in (("rans_encode", "compression_tpu/codec/rans.py:178"),
                            ("rans_decode", "compression_tpu/codec/rans.py:257")):
         kernels.append({

@@ -32,9 +32,11 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
 from compression_tpu_torch.layers.signal_conv import (
     SignalConv2D,
     conv_nhwc,
+    signal_conv,
     truncated_normal_init,
 )
 from compression_tpu_torch.util.profiling import span
@@ -45,7 +47,11 @@ __all__ = ["ChannelNorm", "ResidualBlock", "Encoder", "Generator", "Conv",
 
 class ChannelNorm(nn.Module):
     """Normalizes each position over its channels (the trailing axis), with
-    a learned scale and offset per channel."""
+    a learned scale and offset per channel. ``forward(x, bias, residual,
+    relu)`` gives ``[residual +] [relu](norm(x [+ bias]))``, so that the
+    convolution before it and the ReLU or residual add after it run in the
+    same pass: :func:`fused_channel_norm`, the CUDA kernel on the card (which
+    raises on what it cannot take) and its twin on the CPU."""
 
     def __init__(self, channels: int, epsilon: float = 1e-3):
         super().__init__()
@@ -53,16 +59,30 @@ class ChannelNorm(nn.Module):
         self.gamma = nn.Parameter(torch.ones(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
+    def forward(self, x, bias=None, residual=None, relu: bool = False):
         with span("hific/channel_norm"):
-            mu = torch.mean(x, dim=-1, keepdim=True)
-            var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)  # ddof 0
-            return (x - mu) * torch.rsqrt(var + self.epsilon) * self.gamma + self.beta
+            return fused_channel_norm(x, self.gamma, self.beta, bias, residual, relu,
+                                      self.epsilon)
 
 
 def _conv(cin, cout, k, gen, **kw):
     return SignalConv2D(cin, cout, k, corr=kw.pop("corr", True), padding="same_zeros",
                         use_bias=True, generator=gen, **kw)
+
+
+def _conv_norm(conv: SignalConv2D, norm: ChannelNorm, x, residual=None, relu: bool = False):
+    """``norm(conv(x))`` with the convolution's bias, and the ReLU or the
+    residual add after the norm, handed to the norm's one pass: the
+    convolution runs as ``SignalConv2D.forward`` would, without its bias."""
+    if conv.activation is not None:
+        raise ValueError("a convolution before a ChannelNorm has no activation of its own")
+    y = signal_conv(x, conv.kernel(), corr=conv.corr, strides_down=conv.strides_down,
+                    strides_up=conv.strides_up, padding=conv.padding,
+                    extra_pad_end=conv.extra_pad_end, channel_separable=conv.channel_separable)
+    # The norm takes contiguous (rows, C) rows: cuDNN's float32 convolutions
+    # leave channels-last memory, which is that already; its float64 ones
+    # leave NCHW memory, copied here.
+    return norm(y.contiguous(), bias=conv.bias, residual=residual, relu=relu)
 
 
 class ResidualBlock(nn.Module):
@@ -74,8 +94,8 @@ class ResidualBlock(nn.Module):
         self.norm1 = ChannelNorm(filters)
 
     def forward(self, x):
-        h = torch.relu(self.norm0(self.conv0(x)))
-        return x + self.norm1(self.conv1(h))
+        h = _conv_norm(self.conv0, self.norm0, x, relu=True)
+        return _conv_norm(self.conv1, self.norm1, h, residual=x)
 
 
 _ENCODER_WIDTHS = (60, 120, 240, 480, 960)
@@ -98,7 +118,7 @@ class Encoder(nn.Module):
 
     def forward(self, x):
         for i in range(len(_ENCODER_WIDTHS)):
-            x = torch.relu(getattr(self, f"norm{i}")(getattr(self, f"conv{i}")(x)))
+            x = _conv_norm(getattr(self, f"conv{i}"), getattr(self, f"norm{i}"), x, relu=True)
         return self.conv_out(x)
 
 
@@ -121,11 +141,12 @@ class Generator(nn.Module):
         self.conv_out = _conv(_UP_WIDTHS[-1], 3, 7, gen)
 
     def forward(self, y):
-        x = self.norm_head(self.conv_in(self.norm_in(y)))
+        # y as the encoder or the entropy model left it (NCHW memory in float64).
+        x = _conv_norm(self.conv_in, self.norm_head, self.norm_in(y.contiguous()))
         for i in range(self.num_residual_blocks):
             x = getattr(self, f"res{i}")(x)
         for i in range(len(_UP_WIDTHS)):
-            x = torch.relu(getattr(self, f"upnorm{i}")(getattr(self, f"up{i}")(x)))
+            x = _conv_norm(getattr(self, f"up{i}"), getattr(self, f"upnorm{i}"), x, relu=True)
         return self.conv_out(x)
 
 

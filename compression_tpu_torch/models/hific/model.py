@@ -439,8 +439,9 @@ def decompress(model: HificModel, data: bytes, device="cuda") -> np.ndarray:
 #
 # The encoder and the generator are wired by hand (ChannelNorm, the
 # residual trunk). ChannelNorm normalizes each position over its channels,
-# so it runs on the shards as they are; only the convolutions exchange
-# halos.
+# so it runs on each shard, made contiguous rows for its kernel (a shard cut
+# from a batch, or a float64 convolution's NCHW memory, is not); only the
+# convolutions exchange halos.
 
 
 def sharded_encode(model: HificModel, x, mesh, axis="data"):
@@ -451,7 +452,7 @@ def sharded_encode(model: HificModel, x, mesh, axis="data"):
     for i in range(5):
         x = sharded_conv(getattr(enc, f"conv{i}"), x, mesh, axis)
         norm = getattr(enc, f"norm{i}")
-        x = reps.map(lambda t, norm=norm: torch.relu(norm(t)), x)
+        x = reps.map(lambda t, norm=norm: torch.relu(norm(t.contiguous())), x)
     return sharded_conv(enc.conv_out, x, mesh, axis)
 
 
@@ -460,18 +461,20 @@ def sharded_generate(model: HificModel, y_hat, mesh, axis="data"):
     its shards -> the image's shards (16x up-sampled floats)."""
     gen = model.generator
     reps = Replicas(gen, mesh.devices)
-    x = reps.map(gen.norm_in, as_shards(y_hat, mesh, axis))
-    x = reps.map(gen.norm_head, sharded_conv(gen.conv_in, x, mesh, axis))
+    x = reps.map(lambda t: gen.norm_in(t.contiguous()), as_shards(y_hat, mesh, axis))
+    x = reps.map(lambda t: gen.norm_head(t.contiguous()),
+                 sharded_conv(gen.conv_in, x, mesh, axis))
     for i in range(gen.num_residual_blocks):
         res = getattr(gen, f"res{i}")
         h = sharded_conv(res.conv0, x, mesh, axis)
-        h = reps.map(lambda t, res=res: torch.relu(res.norm0(t)), h)
-        h = reps.map(res.norm1, sharded_conv(res.conv1, h, mesh, axis))
+        h = reps.map(lambda t, res=res: torch.relu(res.norm0(t.contiguous())), h)
+        h = reps.map(lambda t, res=res: res.norm1(t.contiguous()),
+                     sharded_conv(res.conv1, h, mesh, axis))
         x = map_shards(torch.add, x, h)
     for i in range(4):
         x = sharded_conv(getattr(gen, f"up{i}"), x, mesh, axis)
         norm = getattr(gen, f"upnorm{i}")
-        x = reps.map(lambda t, norm=norm: torch.relu(norm(t)), x)
+        x = reps.map(lambda t, norm=norm: torch.relu(norm(t.contiguous())), x)
     return sharded_conv(gen.conv_out, x, mesh, axis)
 
 

@@ -17,6 +17,7 @@ without JAX run it alone, without the suite's conftest:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import itertools
 import pathlib
 
 import numpy as np
@@ -28,6 +29,9 @@ from compression_tpu_torch.codec import pmf_to_quantized_cdf, rans, rans_ref
 from compression_tpu_torch.entropy_models.continuous_base import CdfTables
 from compression_tpu_torch.layers import (fused_gdn, fused_gdn_general, fused_gdn_reference,
                                           parameters)
+from compression_tpu_torch.layers import channel_norm_kernel
+from compression_tpu_torch.layers.channel_norm_kernel import (fused_channel_norm,
+                                                           fused_channel_norm_reference)
 from compression_tpu_torch.layers.gdn_kernel import FusedGDN
 from compression_tpu_torch.entropy_models import continuous_batched, continuous_indexed
 from compression_tpu_torch.models import (b2018, bls2017, bmshj2018, common, hific, mbt2018,
@@ -956,8 +960,9 @@ def test_hific_joint_step_on_card_matches_cpu(cuda, monkeypatch):
     it on the card than 3x the CPU's distance, for the worst tensor and the
     median one (a ReLU at the 2 x 8 x 8 latents that flips where a forward
     is an ulp from 0 moves a gradient by ~1/128 of its sum, so float32 is
-    not held to the CPU's float32). No kernel of the port launches in a
-    training step."""
+    not held to the CPU's float32). No GDN or rANS kernel launches in a
+    training step; ChannelNorm's kernel launches once a norm (13 calls) on
+    the card, in float32 and in float64 (its general path)."""
     cfg = hific.HificConfig(name="hific-test", target_rate=0.3, num_latents=8,
                             num_hyperlatents=4, num_residual_blocks=1)
     gen = torch.Generator().manual_seed(1)
@@ -976,10 +981,12 @@ def test_hific_joint_step_on_card_matches_cpu(cuda, monkeypatch):
         lpips = hific_lpips.LPIPS(seed=5).requires_grad_(False).to(device, dtype)
         step, _, _ = hific.make_train_steps(model, disc, lpips, cfg)
         counts = (fused_gdn.launches, rans.rans_encode.launches, rans.rans_decode.launches)
+        norms = fused_channel_norm.launches
         metrics = step(x.to(device, dtype), None)
         assert queue == []
         assert (fused_gdn.launches, rans.rans_encode.launches,
                 rans.rans_decode.launches) == counts
+        assert fused_channel_norm.launches - norms == (13 if device == cuda else 0)
         tensors = {**{f"G {n}": p.grad.cpu() for n, p in model.named_parameters()},
                    **{f"D {n}": p.grad.cpu() for n, p in disc.named_parameters()},
                    **{f"D {n}": b.cpu() for n, b in disc.named_buffers()}}
@@ -1007,6 +1014,248 @@ def test_hific_joint_step_on_card_matches_cpu(cuda, monkeypatch):
     cpu = np.array([rel(t_cpu[n], t_ref[n]) for n in grads])
     assert card.max() <= 3 * cpu.max(), (card.max(), cpu.max())
     assert np.median(card) <= 3 * np.median(cpu), (np.median(card), np.median(cpu))
+
+
+# -- HiFiC's fused ChannelNorm -------------------------------------------------------
+
+# The main path's calls, (N, H, W, C) and (bias, relu, residual), of a batch of
+# eight 768x512 images: the encoder's five norms, then the decoder's norm_in,
+# norm_head, a residual block's two and the up-path's four.
+NORM_CALLS = [
+    ((8, 512, 768, 60), (True, True, False)), ((8, 256, 384, 120), (True, True, False)),
+    ((8, 128, 192, 240), (True, True, False)), ((8, 64, 96, 480), (True, True, False)),
+    ((8, 32, 48, 960), (True, True, False)), ((8, 32, 48, 220), (False, False, False)),
+    ((8, 32, 48, 960), (True, False, False)), ((8, 32, 48, 960), (True, False, True)),
+    ((8, 64, 96, 480), (True, True, False)), ((8, 128, 192, 240), (True, True, False)),
+    ((8, 256, 384, 120), (True, True, False)), ((8, 512, 768, 60), (True, True, False)),
+]
+# Kernel against twin: at HiFiC's widths, with 16 rows or more and 16-byte
+# aligned rows, the kernel sums in torch.mean's order as of torch
+# ATEN_ORDER_TORCH and rounds every op as the twin's ops do, so the two are
+# equal bit for bit; test_channel_norm_sums_rows_as_torch_mean alone holds
+# that, and the other tests hold those cases to NORM_ULPS ulps of the largest
+# output (a mean an ulp off moves a whole row's outputs by about an ulp of
+# the row's scale, whatever the output's own size), so that another
+# torch's order fails the one test that names the cause. Elsewhere (other
+# widths, rows only 4-byte aligned, or fewer rows, where ATen picks wider
+# blocks) the sums take other orders, which moves a row's mean and variance
+# by a few ulps and an output of these inputs (|out| < ~10) by under 1e-6.
+NORM_TOL = dict(rtol=1e-5, atol=1e-5)
+NORM_ULPS = 4
+NORM_WIDTHS = (60, 120, 220, 240, 480, 960)
+
+
+def _norm_inputs(shape, bias, residual, device, seed=0, offset=0):
+    """x with mean 3 and std 5 a row, gamma and beta around 1 and 0, bias
+    and residual normal, drawn on ``device``; ``offset`` floats of slack
+    before each tensor (an offset of 1 leaves it 4-byte aligned only)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = shape[-1]
+
+    def draw(*s):
+        n = int(np.prod(s))
+        return torch.randn(n + offset, generator=gen, device=device)[offset:].view(*s)
+
+    x = draw(*shape).mul_(5).add_(3)
+    gamma, beta = draw(c).mul_(0.3).add_(1), draw(c).mul_(0.3)
+    return (x, gamma, beta, draw(c) if bias else None, draw(*shape) if residual else None)
+
+
+def _norm_id(shape, flags):
+    return "x".join(map(str, shape)) + "-" + "".join("01"[f] for f in flags)
+
+
+def _assert_ulps(got, want, msg=None):
+    """``got`` within NORM_ULPS ulps of ``want``'s largest magnitude."""
+    tol = NORM_ULPS * torch.finfo(want.dtype).eps * want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=0, atol=tol, msg=msg)
+
+
+def test_channel_norm_sums_rows_as_torch_mean(cuda):
+    """The float32 kernel's mean and rstd of each row at every distinct
+    call of a HiFiC round trip (8x768x512), bit for bit against torch.mean
+    of the biased row and the twin's rstd: the kernel copies the order in
+    which ATen's reduction sums a row, read from one torch release, and
+    HiFiC's latents at rounding ties (the benchmark's hific-mi
+    ``pixels_off``) depend on it."""
+    for shape, (bias, relu, residual) in sorted(set(NORM_CALLS)):
+        x, gamma, beta, b, r = _norm_inputs(shape, bias, residual, cuda, seed=shape[-1])
+        with torch.inference_mode():
+            _, mean, rstd = channel_norm_kernel._kernel_forward(x, gamma, beta, b, r, relu,
+                                                                1e-3, stats=True)
+            v = x if b is None else x + b
+            want_mean = torch.mean(v, dim=-1, keepdim=True)
+            _, _, want_rstd = channel_norm_kernel._reference(x, gamma, beta, b, r, relu, 1e-3)
+            off = int((mean != want_mean).sum()) + int((rstd != want_rstd).sum())
+        assert off == 0, (
+            f"{_norm_id(shape, (bias, relu, residual))}: {off} of {2 * mean.numel()} row "
+            f"statistics differ from torch.mean's; the kernel sums rows in ATen's order as of "
+            f"torch {channel_norm_kernel.ATEN_ORDER_TORCH}, this is torch {torch.__version__}: "
+            "read Reduce.cuh's order for a row of C floats and update Layout and row_sum in "
+            "csrc/channel_norm.cu")
+
+
+@pytest.mark.parametrize("shape,flags", sorted(set(NORM_CALLS)),
+                         ids=[_norm_id(*call) for call in sorted(set(NORM_CALLS))])
+def test_channel_norm_kernel_matches_twin_at_the_main_path(cuda, shape, flags):
+    """Every distinct call of a HiFiC round trip at 8x768x512, one launch
+    each, the output and the saved mean and rstd within NORM_ULPS ulps of
+    the twin's (bit for bit where ATen's order is the kernel's: see
+    test_channel_norm_sums_rows_as_torch_mean)."""
+    bias, relu, residual = flags
+    x, gamma, beta, b, r = _norm_inputs(shape, bias, residual, cuda, seed=shape[-1])
+    before = fused_channel_norm.launches
+    with torch.inference_mode():
+        got, mean, rstd = channel_norm_kernel._kernel_forward(x, gamma, beta, b, r, relu, 1e-3,
+                                                              stats=True)
+        torch.cuda.synchronize()
+        assert fused_channel_norm.launches == before + 1
+        want, want_mean, want_rstd = channel_norm_kernel._reference(x, gamma, beta, b, r, relu,
+                                                                    1e-3)
+        _assert_ulps(got, want, "out")
+        _assert_ulps(mean, want_mean, "mean")
+        _assert_ulps(rstd, want_rstd, "rstd")
+        assert torch.equal(fused_channel_norm(x, gamma, beta, b, r, relu), got)
+
+
+@pytest.mark.parametrize("flags", list(itertools.product((False, True), repeat=3)),
+                         ids=lambda f: "".join("01"[v] for v in f))
+@pytest.mark.parametrize("c", [60, 120, 220, 240, 480, 960, 1, 37, 100, 1000])
+@pytest.mark.parametrize("rows,offset", [(1, 0), (4551, 0), (4551, 1)])
+def test_channel_norm_kernel_at_any_width_matches_twin(cuda, c, rows, offset, flags):
+    """Each flag combination at HiFiC's widths (the float4 path: 4 rows a
+    warp below 128 channels, one from 128) and at other widths or rows only
+    4-byte aligned (``offset`` 1: the general path), with rows that leave
+    a warp's last group part empty: within NORM_ULPS ulps where NORM_TOL's
+    note says the two are equal bit for bit, else within NORM_TOL."""
+    bias, relu, residual = flags
+    x, gamma, beta, b, r = _norm_inputs((rows, c), bias, residual, cuda, seed=c + rows,
+                                        offset=offset)
+    with torch.inference_mode():
+        got = fused_channel_norm(x, gamma, beta, b, r, relu)
+        torch.cuda.synchronize()
+        want = fused_channel_norm_reference(x, gamma, beta, b, r, relu)
+    if c in NORM_WIDTHS and rows >= 16 and offset == 0:
+        _assert_ulps(got, want)
+    else:
+        torch.testing.assert_close(got, want, **NORM_TOL)
+
+
+@pytest.mark.parametrize("c", [60, 120, 960, 37])
+def test_channel_norm_rows_do_not_depend_on_the_batch(cuda, c):
+    """A row's result is bit-equal alone, at any place in a call of
+    200,000 rows, and on a second run."""
+    x, gamma, beta, b, r = _norm_inputs((200_000, c), True, True, cuda, seed=c)
+    with torch.inference_mode():
+        whole = fused_channel_norm(x, gamma, beta, b, r, True)
+        again = fused_channel_norm(x, gamma, beta, b, r, True)
+        for at in (0, 1, 4, 12_345, 199_999):
+            alone = fused_channel_norm(x[at:at + 1].clone(), gamma, beta, b,
+                                       r[at:at + 1].clone(), True)
+            assert torch.equal(alone, whole[at:at + 1]), at
+    assert torch.equal(whole, again)
+
+
+@pytest.mark.parametrize("flags", list(itertools.product((False, True), repeat=3)),
+                         ids=lambda f: "".join("01"[v] for v in f))
+@pytest.mark.parametrize("c", [60, 960, 37])
+def test_channel_norm_gradients_on_card(cuda, c, flags):
+    """FusedChannelNorm on the card (the kernel forward, the plain-op
+    backward) against autograd through the twin on the card: the output
+    within NORM_ULPS ulps at HiFiC's widths, else within NORM_TOL, the gradients of
+    x, gamma, beta, bias and residual within 1e-4 of their largest entry
+    (other summation orders over 4,551 rows in float32)."""
+    bias, relu, residual = flags
+    tensors = _norm_inputs((3, 37, 41, c), bias, residual, cuda, seed=c)
+    w = torch.randn(tensors[0].shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    runs = []
+    for fn in (fused_channel_norm, fused_channel_norm_reference):
+        leaves = [t.clone().requires_grad_() if t is not None else None for t in tensors]
+        before = fused_channel_norm.launches
+        out = fn(*leaves, relu=relu)
+        launched = fused_channel_norm.launches - before
+        (out * w).sum().backward()
+        runs.append((out.detach(), [t.grad if t is not None else None for t in leaves],
+                     launched))
+    (got, grads, launched), (want, want_grads, _) = runs
+    assert launched == 1
+    if c in NORM_WIDTHS:
+        _assert_ulps(got, want)
+    else:
+        torch.testing.assert_close(got, want, **NORM_TOL)
+    for name, g, h in zip(("x", "gamma", "beta", "bias", "residual"), grads, want_grads):
+        if h is None:
+            assert g is None, name
+            continue
+        torch.testing.assert_close(g, h, rtol=0, atol=1e-4 * h.abs().max().item(), msg=name)
+
+
+@pytest.mark.parametrize("flags", [(False, False, False), (True, True, False),
+                                   (True, False, True)], ids=lambda f: "".join("01"[v] for v in f))
+@pytest.mark.parametrize("c", [60, 960, 37])
+def test_channel_norm_kernel_in_float64_matches_twin(cuda, c, flags):
+    """float64 (HiFiC's float64 checks) takes the general path: one launch,
+    the output, mean and rstd within 1e-13 of the twin's largest entry, and
+    the gradients under autograd within 1e-12 of their largest entry."""
+    bias, relu, residual = flags
+    tensors = [t.double() if t is not None else None
+               for t in _norm_inputs((5, 7, 11, c), bias, residual, cuda, seed=c)]
+    before = fused_channel_norm.launches
+    with torch.inference_mode():
+        got, mean, rstd = channel_norm_kernel._kernel_forward(*tensors, relu, 1e-3, stats=True)
+        want, want_mean, want_rstd = channel_norm_kernel._reference(*tensors, relu, 1e-3)
+    assert fused_channel_norm.launches == before + 1 and got.dtype == torch.float64
+    for name, g, h in (("out", got, want), ("mean", mean, want_mean), ("rstd", rstd, want_rstd)):
+        torch.testing.assert_close(g, h, rtol=0, atol=1e-13 * h.abs().max().item(), msg=name)
+    w = torch.randn(tensors[0].shape, device=cuda, dtype=torch.float64,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    grads = []
+    for fn in (fused_channel_norm, fused_channel_norm_reference):
+        leaves = [t.clone().requires_grad_() if t is not None else None for t in tensors]
+        (fn(*leaves, relu=relu) * w).sum().backward()
+        grads.append([t.grad for t in leaves if t is not None])
+    for g, h in zip(*grads):
+        torch.testing.assert_close(g, h, rtol=0, atol=1e-12 * h.abs().max().item())
+
+
+def test_hific_float32_norms_take_rows_as_the_convolutions_leave_them(cuda, monkeypatch):
+    """Over a float32 hific-mi round trip on the card every convolution
+    before a norm, and the latents before ``norm_in``, leave contiguous
+    rows, so the networks' ``.contiguous()`` before a norm copies nothing
+    there (cuDNN's float64 convolutions leave NCHW memory, which it copies)."""
+    from compression_tpu_torch.models.hific import archs as hific_archs
+
+    seen = []
+    conv = hific_archs.signal_conv
+
+    def spy(*args, **kwargs):
+        y = conv(*args, **kwargs)
+        seen.append(y.is_contiguous())
+        return y
+
+    monkeypatch.setattr(hific_archs, "signal_conv", spy)
+    gpu = hific.Codec(hific.HificModel(hific.get_config("hific-mi"), seed=3), device=cuda)
+    gpu.model.generator.register_forward_pre_hook(
+        lambda module, args: seen.append(args[0].is_contiguous()))
+    images = (np.random.RandomState(9).rand(2, 96, 130, 3) * 255).astype(np.uint8)
+    gpu.decompress_batch(gpu.compress_batch(images, coder="device"))
+    assert seen == [True] * (5 + 1 + 2 + 2 * 9 + 4 - 1)
+
+
+def test_channel_norm_launches_on_the_codec_paths(cuda):
+    """hific-mi's device-coded codec on 2 images of 96x130 launches the
+    kernel 5 times a compressed batch and 24 a decoded one (9 residual
+    blocks); a bmshj2018 round trip launches it 0 times."""
+    gpu = hific.Codec(hific.HificModel(hific.get_config("hific-mi"), seed=3), device=cuda)
+    images = (np.random.RandomState(8).rand(2, 96, 130, 3) * 255).astype(np.uint8)
+    before = fused_channel_norm.launches
+    blobs = gpu.compress_batch(images, coder="device")
+    assert fused_channel_norm.launches == before + 5
+    gpu.decompress_batch(blobs)
+    assert fused_channel_norm.launches == before + 5 + 24
+    codec = bmshj2018.Codec(bmshj2018.load_model(CKPT), device=cuda)
+    codec.decompress_batch(codec.compress_batch(images, coder="device"))
+    assert fused_channel_norm.launches == before + 5 + 24
 
 
 @pytest.mark.parametrize("coder", ["host", "device"])
