@@ -31,7 +31,8 @@ def codec_readings(cfg, wl, seed, device):
     about doubled (each row six levels up), planted in the reference put
     in the program's place: its y costed at the shifted rows against the
     reference's at its own. Both in the cell's format with the flush at
-    its mean (a rANS lane 24 bits, a range-coded stream 36)."""
+    its mean for each y stream (a rANS lane 24 bits, a range-coded stream
+    36)."""
     import torch
 
     from benchmark import judge, weights
@@ -45,10 +46,11 @@ def codec_readings(cfg, wl, seed, device):
     ref = ReferenceCodec(cfg, weights.load(cfg, seed, device), device)
     want = ref.expected(pool[:n])
     got = ref.expected(pool[:n], tf32=True)
+    streams = n * len(want.streams)
     if t["coder"] == "device":
-        escape, fixed = entropy.rans_escape_bits, n * 24.0 * 128
+        escape, fixed = entropy.rans_escape_bits, streams * 24.0 * 128
     else:
-        escape, fixed = entropy.range_escape_bits, n * judge.RANGE_FLUSH_BITS
+        escape, fixed = entropy.range_escape_bits, streams * judge.RANGE_FLUSH_BITS
 
     def bits(exp, shift=0):
         rows = torch.clamp(entropy.scale_rows(exp.sigma) + shift, max=entropy.SCALES_LEVELS - 1)

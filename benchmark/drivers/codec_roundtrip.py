@@ -29,6 +29,7 @@ import torch
 
 from benchmark import harness, judge, program, trace, weights
 from benchmark.harness import Context, Outcome
+from benchmark.reference import models
 from benchmark.traffic import images
 
 
@@ -53,8 +54,10 @@ class _Reservoir:
         self.seen += 1
 
 
-def _plant(codec, faults):
-    """Faults the harness's own tests plant in the timed path."""
+def _plant(codec, faults, rows):
+    """Faults the harness's own tests plant in the timed path. ``rows``
+    names the codec's method that gives (..., CDF rows) to both its encoder
+    and its decoder: the family adapter's ``ROWS``."""
     if "half_batch" in faults:
         iterate = codec.compress_iter
 
@@ -74,12 +77,12 @@ def _plant(codec, faults):
     if "sigma_doubled" in faults:
         # Each y element's CDF row six levels of the log table up (sigma
         # about doubled), on both sides, so the round trip still holds.
-        rows_of = codec._mu_rows
+        rows_of = getattr(codec, rows)
 
-        def shifted(z_hat):
-            mu, rows = rows_of(z_hat)
-            return mu, torch.clamp(rows.to(torch.int32) + 6, max=63).to(rows.dtype)
-        codec._mu_rows = shifted
+        def shifted(*args, **kwargs):
+            *rest, r = rows_of(*args, **kwargs)
+            return (*rest, torch.clamp(r.to(torch.int32) + 6, max=63).to(r.dtype))
+        setattr(codec, rows, shifted)
 
 
 @contextlib.contextmanager
@@ -125,7 +128,7 @@ def run(ctx: Context) -> Outcome:
     setup_s = time.perf_counter() - ctx.t_start
     launches0 = program.launches()
     codec.timer.reset()
-    _plant(codec, ctx.faults)
+    _plant(codec, ctx.faults, getattr(program.family(ctx.config), "ROWS", "_mu_rows"))
 
     rng = np.random.default_rng([ctx.seed, 1])
     sample = _Reservoir(ctx.workload["correct"]["sample_batches"], rng)
@@ -204,7 +207,8 @@ def run(ctx: Context) -> Outcome:
                     pass
         phases = rec.phases()
         record["phases"] = phases
-        record["y_words"] = (sum(judge.y_words(b) for bl in blobs for b in bl)
+        streams = models.y_streams(ctx.config)
+        record["y_words"] = (sum(judge.y_words(b, streams) for bl in blobs for b in bl)
                              if coder == "device" else None)
         busy_s = sum(p.busy_s for p in phases.values())
         traced_s = sum(p.wall_s for p in phases.values())

@@ -12,8 +12,10 @@ weights:
 * ``y_rate_gap``: how far the blobs' y streams, in bits, lie from what the
   reference's y symbols cost in the blob's format against the reference's
   own y tables at the rows its sigma picks (each symbol its row's
-  ``-log2`` frequency, an escape its payload too, and the rANS lanes'
-  expected flush), over the latter. It holds the hyper-synthesis's sigma,
+  ``-log2`` frequency, an escape its payload too, and each stream's flush:
+  the rANS lanes' from the stream's first words, or the range coder's
+  mean), over the latter. A family that codes y in S slices has S
+  streams a blob, summed. It holds the hyper-synthesis's sigma,
   the scale indexes and the coder's efficiency, which a round trip alone
   does not: encoder and decoder take the same rows.
 
@@ -41,12 +43,12 @@ import torch
 from benchmark.harness import Check
 from benchmark.reference import entropy
 from benchmark.reference.codec import ReferenceCodec
-from benchmark.reference.formats import read_blob
+from benchmark.reference.formats import blob_fields
 
 
-def y_words(blob: bytes) -> int:
-    """The 16-bit words of a device-coded blob's y stream."""
-    return len(read_blob(blob)[1][0]) // 2
+def y_words(blob: bytes, streams: int) -> int:
+    """The 16-bit words of a device-coded blob's ``streams`` y streams."""
+    return sum(len(f) // 2 for f in blob_fields(blob, streams)[0])
 
 
 def rans_flush_bits(stream: bytes, lanes: int) -> float:
@@ -66,20 +68,22 @@ def rans_flush_bits(stream: bytes, lanes: int) -> float:
 RANGE_FLUSH_BITS = 36.0
 
 
-def y_format(blob: bytes):
-    """(the blob's y stream in bits, its escape payload, its fixed bits)."""
-    fields = read_blob(blob)[1]
-    if len(fields) == 5:  # device-coded: K-lane rANS, K last
-        return (8 * len(fields[0]), entropy.rans_escape_bits,
-                rans_flush_bits(fields[0], int(fields[4][0])))
-    return 8 * len(fields[0]), entropy.range_escape_bits, RANGE_FLUSH_BITS
+def y_format(blob: bytes, streams: int):
+    """(the blob's ``streams`` y streams in bits, their escape payload, their
+    fixed bits): each stream pays its own flush, from its first 2K words
+    where rANS coded it, else the range coder's."""
+    ys, _z, _zshape, K = blob_fields(blob, streams)
+    bits = sum(8 * len(f) for f in ys)
+    if K is not None:  # device-coded: K-lane rANS
+        return bits, entropy.rans_escape_bits, sum(rans_flush_bits(f, K) for f in ys)
+    return bits, entropy.range_escape_bits, RANGE_FLUSH_BITS * len(ys)
 
 
 def y_rate(ref: ReferenceCodec, exp, blobs) -> Tuple[float, float]:
     """(bits the blobs' y streams hold, bits the reference expects)."""
     coded = expected = 0.0
     for i, blob in enumerate(blobs):
-        bits, escape_bits, fixed = y_format(blob)
+        bits, escape_bits, fixed = y_format(blob, ref.streams)
         coded += bits
         expected += ref.y_bits(exp, i, escape_bits) + fixed
     return coded, expected

@@ -2,11 +2,16 @@
 codec's blobs hold and what its decoder must return.
 
 Per image: y = analysis(x / 255), z = hyper_analysis(y), z's symbols
-``round(z - offset)`` on the prior's grid, z_hat = symbols + offset,
-(mu, sigma) = hyper_synthesis(z_hat) run one image at a time, y's symbols
-``round(y - mu)`` (``round(y)`` where the family predicts no mean), and the
-decoded image ``uint8(synthesis(symbols + mu))``. The z strings of a blob
-are read back with the reference's own tables and range decoder; y's
+``round(z - offset)`` on the prior's grid, z_hat = symbols + offset, then
+the family's y model run one image at a time: by default (mu, sigma) =
+hyper_synthesis(z_hat), one y stream of symbols ``round(y - mu)``
+(``round(y)`` where the family predicts no mean) and y_hat = symbols + mu;
+a family that codes y in slices gives each slice's stream from the slices
+before it (:mod:`benchmark.reference.models`). The decoded image is
+``uint8(synthesis(y_hat))``. A blob holds ``[S y streams, z string,
+xshape, zshape]``, and ``[K]`` after them where rANS coded its y
+(:func:`~benchmark.reference.formats.blob_fields`). The z strings of a
+blob are read back with the reference's own tables and range decoder; y's
 symbols are costed in bits against the reference's own y tables, at the
 rows sigma picks.
 """
@@ -20,9 +25,9 @@ import numpy as np
 import torch
 
 from benchmark.reference import entropy
-from benchmark.reference.formats import read_blob
+from benchmark.reference.formats import blob_fields
 from benchmark.reference.layers import to_uint8
-from benchmark.reference.models import Transforms
+from benchmark.reference.models import Transforms, y_streams
 
 
 @contextlib.contextmanager
@@ -39,10 +44,11 @@ def precision(tf32: bool):
 
 @dataclass
 class Expected:
-    y_symbols: torch.Tensor   # int32 (n, h, w, C)
+    y_symbols: torch.Tensor   # int32 (n, h, w, C): the streams' channels in blob order
     z_symbols: torch.Tensor   # int32 (n, h/4, w/4, Cz)
     sigma: torch.Tensor       # float32, like y
     images: torch.Tensor      # uint8 (n, H, W, 3)
+    streams: tuple            # the channels of each y stream
 
 
 class ReferenceCodec:
@@ -54,6 +60,7 @@ class ReferenceCodec:
         self.p = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
                   for k, v in params.items()}
         self.t = Transforms(cfg)
+        self.streams = y_streams(cfg)
         self.device = device
         self.tables = entropy.FactorizedTables(entropy.prior_params(self.p))
         self.z_offset = torch.as_tensor(self.tables.offset, device=device)
@@ -73,23 +80,23 @@ class ReferenceCodec:
             z = self.t.hyper_analysis(self.p, y)
             z_sym = torch.round(z - self.z_offset).to(torch.int32)
             z_hat = z_sym.to(torch.float32) + self.z_offset
-            mus, sigmas = zip(*(self.t.hyper_synthesis(self.p, z_hat[i : i + 1])
-                                for i in range(z_hat.shape[0])))
-            sigma = torch.cat(sigmas)
-            mu = None if mus[0] is None else torch.cat(mus)
-            y_sym = torch.round(y if mu is None else y - mu).to(torch.int32)
-            y_hat = y_sym.to(torch.float32)
-            if mu is not None:
-                y_hat = y_hat + mu
-            x_hat = torch.cat([to_uint8(self.t.synthesis(self.p, y_hat[i : i + 1]))
-                               for i in range(y_hat.shape[0])])
-        return Expected(y_sym, z_sym, sigma, x_hat)
+            per_image = [self.t.y_model(self.p, y[i : i + 1], z_hat[i : i + 1])
+                         for i in range(z_hat.shape[0])]
+            x_hat = torch.cat([to_uint8(self.t.synthesis(self.p, y_hat))
+                               for _streams, y_hat in per_image])
+            streams = [s for s, _y_hat in per_image]
+            y_sym = torch.cat([torch.cat([sym for sym, _ in s], -1) for s in streams])
+            sigma = torch.cat([torch.cat([sig for _, sig in s], -1) for s in streams])
+        if len(streams[0]) != self.streams:
+            raise ValueError(f"the y model gives {len(streams[0])} streams an image, "
+                             f"the family's blobs hold {self.streams}")
+        return Expected(y_sym, z_sym, sigma, x_hat,
+                        tuple(sym.shape[-1] for sym, _ in streams[0]))
 
     def z_from_blob(self, blob: bytes) -> np.ndarray:
         """The z symbols a blob's z string holds, read with the reference's
         tables: ``(h, w, Cz)`` int64."""
-        _model, fields = read_blob(blob)
-        z_string, zshape = fields[1], fields[3]
+        _y, z_string, zshape, _K = blob_fields(blob, self.streams)
         channels = len(self.tables.rows)
         index = np.tile(np.arange(channels), int(np.prod(zshape)))
         values = entropy.decode_values(z_string, self.tables.rows, self.tables.cdf_offset, index)

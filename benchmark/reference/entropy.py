@@ -36,6 +36,22 @@ SCALES_MIN, SCALES_MAX, SCALES_LEVELS = 0.11, 256.0, 64
 
 # -- the factorized hyperprior -----------------------------------------------
 
+# The factorized prior's hidden filters (tensorflow_compression's default).
+PRIOR_FILTERS = (3, 3, 3)
+
+
+def prior_shapes(channels, prefix="hyperprior"):
+    """Every parameter of a factorized prior over ``channels`` channels and
+    its shape, as weights drawn from the seed take them."""
+    filters = (1,) + PRIOR_FILTERS + (1,)
+    shapes = {}
+    for i in range(len(filters) - 1):
+        shapes[f"{prefix}/matrices/{i}"] = (channels, filters[i + 1], filters[i])
+        shapes[f"{prefix}/biases/{i}"] = (channels, filters[i + 1], 1)
+        if i < len(PRIOR_FILTERS):
+            shapes[f"{prefix}/factors/{i}"] = (channels, filters[i + 1], 1)
+    return shapes
+
 
 def prior_params(p, prefix="hyperprior"):
     """(matrices, biases, factors) of the factorized prior in ``p``."""

@@ -16,13 +16,13 @@ from typing import Dict, Tuple
 
 import torch
 
+from benchmark.reference import entropy
 from benchmark.reference.layers import LowerBound, channel_norm, conv, conv_up
 from benchmark.roofline.models import Stack
 
 SCALES_MIN = 0.11
 ENCODER = (60, 120, 240, 480, 960)
 UP = (480, 240, 120, 60)
-PRIOR_FILTERS = (3, 3, 3)
 
 
 def analysis(p, x, widths):
@@ -56,17 +56,6 @@ def hyper_synthesis(p, z, widths):
     h = torch.relu(conv_up(h, p, "hyper_synthesis/conv1"))
     mu, sigma = torch.chunk(conv(h, p, "hyper_synthesis/conv2"), 2, dim=-1)
     return mu, LowerBound.apply(sigma, SCALES_MIN)
-
-
-def _prior_shapes(prefix, channels) -> Dict[str, Tuple[int, ...]]:
-    filters = (1,) + PRIOR_FILTERS + (1,)
-    shapes = {}
-    for i in range(len(filters) - 1):
-        shapes[f"{prefix}/matrices/{i}"] = (channels, filters[i + 1], filters[i])
-        shapes[f"{prefix}/biases/{i}"] = (channels, filters[i + 1], 1)
-        if i < len(PRIOR_FILTERS):
-            shapes[f"{prefix}/factors/{i}"] = (channels, filters[i + 1], 1)
-    return shapes
 
 
 def weight_shapes(widths: dict) -> Dict[str, Tuple[int, ...]]:
@@ -109,7 +98,7 @@ def weight_shapes(widths: dict) -> Dict[str, Tuple[int, ...]]:
     conv_("hyper_synthesis/conv0", hyp, hyp, 5)
     conv_("hyper_synthesis/conv1", hyp, hyp * 3 // 2, 5)
     conv_("hyper_synthesis/conv2", hyp * 3 // 2, 2 * lat, 3)
-    shapes.update(_prior_shapes("hyperprior", hyp))
+    shapes.update(entropy.prior_shapes(hyp))
     return shapes
 
 
@@ -149,3 +138,8 @@ def layers(widths, part, n, h, w):
             b.pointwise("channelnorm", f"generator/upnorm{i}")
         b.conv("generator/conv_out", 3, 7)
     return b.layers
+
+
+def small_widths(widths):
+    """The widths the CPU tests run the family at."""
+    return {"num_latents": 8, "num_hyperlatents": 4, "num_residual_blocks": 1}

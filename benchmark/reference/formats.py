@@ -88,6 +88,15 @@ def read_blob(blob: bytes):
     return model, [bytes(t[0]) if isinstance(t, list) else t for t in tensors]
 
 
+def blob_fields(blob: bytes, streams: int):
+    """A codec blob of ``streams`` y streams: ``(y streams, z string,
+    zshape, K)``, K the rANS lanes where the blob holds ``streams + 4``
+    fields (the device coder's) and None otherwise."""
+    fields = read_blob(blob)[1]
+    K = int(fields[streams + 3][0]) if len(fields) == streams + 4 else None
+    return fields[:streams], fields[streams], fields[streams + 2], K
+
+
 # -- flax msgpack checkpoints ---------------------------------------------------
 
 _EXT_NDARRAY, _EXT_SCALAR = 1, 3

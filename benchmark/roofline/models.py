@@ -69,7 +69,8 @@ class Stack:
 
 
 # The transforms each phase runs: encoding ends in the hyper-synthesis (the
-# CDF rows of y), decoding starts there.
+# CDF rows of y), decoding starts there. A family's file may give its own
+# ``PHASES``, with parts of its own that its ``layers`` lists.
 PHASES = {
     "compress": ("analysis", "hyper_analysis", "hyper_synthesis"),
     "decompress": ("hyper_synthesis", "synthesis"),
@@ -85,8 +86,16 @@ def layers(cfg: dict, part: str, n: int, h: int, w: int) -> List[Layer]:
     return family(cfg).layers(cfg["widths"], part, n, h, w)
 
 
+def phases(cfg: dict) -> dict:
+    """The transforms each phase of ``cfg`` runs: its family's ``PHASES``,
+    else :data:`PHASES`."""
+    from benchmark.reference.models import family
+
+    return getattr(family(cfg), "PHASES", PHASES)
+
+
 def phase_layers(cfg: dict, phase: str, n: int, h: int, w: int) -> List[Layer]:
-    return [layer for part in PHASES[phase] for layer in layers(cfg, part, n, h, w)]
+    return [layer for part in phases(cfg)[phase] for layer in layers(cfg, part, n, h, w)]
 
 
 def model_flops(cfg: dict, phase: str, n: int, h: int, w: int) -> float:

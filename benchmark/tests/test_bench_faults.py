@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from benchmark import harness, run
+from benchmark.reference import models
 
 CELLS = {w["name"]: w for w in harness.manifest()["workloads"]}
 CASES = [(cell, fault)
@@ -32,9 +33,15 @@ def small(cell):
         t.update(batch=2, patch=64, height=96, width=128, pool=4, warmup_steps=4, traced_steps=2)
     else:
         t.update(batch=2, height=64, width=128, round_batches=3, pool=5, warmup_batches=2)
-    if cfg["family"] == "hific":
-        cfg["widths"] = {"num_latents": 8, "num_hyperlatents": 4, "num_residual_blocks": 1}
-    return wl, cfg
+    return wl, shrink(cfg)
+
+
+def shrink(cfg):
+    """``cfg`` at the widths its family's file gives the CPU tests, if any."""
+    fam = models.family(cfg)
+    if hasattr(fam, "small_widths"):
+        cfg["widths"] = fam.small_widths(cfg["widths"])
+    return cfg
 
 
 @pytest.mark.parametrize("cell,fault", CASES, ids=lambda v: str(v))

@@ -12,6 +12,9 @@ from benchmark.roofline import conv, k1, models, peaks, rans
 BENCH = pathlib.Path(__file__).resolve().parent.parent
 CONFIGS = {n: json.loads((BENCH / "configs" / f"{n}.json").read_text())
            for n in ("bmshj2018", "hific-mi")}
+# A family with no cell yet, at its published widths.
+CONFIGS["ms2020-cc10"] = {"family": "ms2020", "widths": {
+    "num_filters": 192, "num_latents": 320, "num_hyperlatents": 192}}
 
 
 def test_one_convolution_at_the_codec_shape():
@@ -69,12 +72,33 @@ def test_hific_generator_by_hand():
     assert res < sum(layer.flops() for layer in layers)
 
 
+def test_ms2020_slices_by_hand():
+    # Each of 10 slices: a mean and a scale network over the mean or scale
+    # support (320) and the first min(i, 5) decoded slices (32 each), and an
+    # LRP network over the slice too; 5x5 to 224, 5x5 to 128, 3x3 to 32, at
+    # y's 32x48 grid.
+    cfg = CONFIGS["ms2020-cc10"]
+    layers = models.layers(cfg, "y_model", 1, 512, 768)
+    assert len(layers) == 90 and {layer.kind for layer in layers} == {"conv"}
+
+    def net(cin):
+        return 2 * 32 * 48 * (25 * cin * 224 + 25 * 224 * 128 + 9 * 128 * 32)
+    hand = sum(2 * net(320 + 32 * min(i, 5)) + net(320 + 32 * min(i, 5) + 32)
+               for i in range(10))
+    assert sum(layer.flops() for layer in layers) == hand
+    assert models.phases(cfg)["compress"][-1] == "y_model"
+    assert "y_model" in models.phases(cfg)["decompress"]
+    supports = models.layers(cfg, "hyper_synthesis", 1, 512, 768)
+    assert [(layer.h, layer.cout, layer.up) for layer in supports[:3]] == [
+        (8, 192, True), (16, 256, True), (32, 320, False)]
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 @pytest.mark.parametrize("phase", ["compress", "decompress", "train"])
 def test_whole_model_flops_are_the_sum_over_the_layers(name, phase):
     cfg = CONFIGS[name]
     n, h, w = (8, 256, 256) if phase == "train" else (8, 512, 768)
-    parts = [models.layers(cfg, part, n, h, w) for part in models.PHASES[phase]]
+    parts = [models.layers(cfg, part, n, h, w) for part in models.phases(cfg)[phase]]
     forward = sum(layer.flops() for part in parts for layer in part)
     total = models.model_flops(cfg, phase, n, h, w)
     assert total == (3 * forward if phase == "train" else forward)

@@ -7,10 +7,12 @@ flat ``{"layer/path/leaf": tensor}`` dict in the flax layout (kernels
 * ``"origin": "seed"``: drawn on the device from ``--seed`` in a few large
   calls, at the shapes the family's reference file lists
   (``weight_shapes``). Every kernel N(0, 1/fan_in) (fan_in = kh * kw * cin), biases and
-  ChannelNorm's offsets 0, ChannelNorm's scales 1; the factorized prior at
-  tensorflow_compression's initial values (matrices
-  ``log(expm1(1 / scale / d_out))`` with ``scale = 10^(1/4)``, factors 0)
-  with its biases drawn U(-1/2, 1/2).
+  ChannelNorm's offsets 0, ChannelNorm's scales 1; GDN at
+  tensorflow_compression's initial values (beta 1, gamma 0.1 I, stored as
+  the square roots of the values plus the pedestal, as a checkpoint
+  stores them); the factorized prior at tensorflow_compression's initial
+  values (matrices ``log(expm1(1 / scale / d_out))`` with ``scale =
+  10^(1/4)``, factors 0) with its biases drawn U(-1/2, 1/2).
 
 :func:`to_tree` nests the dict the way a flax checkpoint does, so the
 program loads it through its own checkpoint converter.
@@ -24,14 +26,18 @@ from typing import Dict, Tuple
 
 import torch
 
+from benchmark.reference.entropy import PRIOR_FILTERS
 from benchmark.reference.formats import read_checkpoint
+from benchmark.reference.layers import _PEDESTAL
 from benchmark.reference.models import family
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
-# The factorized prior's filters (tensorflow_compression's default), for
-# the initial values of its matrices.
-_PRIOR_FILTERS = (3, 3, 3)
+def _is_gdn(name: str) -> bool:
+    """Whether a leaf is a GDN's or an inverse GDN's (``.../gdn0/beta``,
+    ``.../igdn2/gamma``)."""
+    layer = name.split("/")[-2]
+    return layer.rstrip("0123456789") in ("gdn", "igdn")
 
 
 def draw(shapes: Dict[str, Tuple[int, ...]], seed: int, device) -> Dict[str, torch.Tensor]:
@@ -51,9 +57,14 @@ def draw(shapes: Dict[str, Tuple[int, ...]], seed: int, device) -> Dict[str, tor
     for name, shape in prior_biases.items():
         out[name] = uniform[at : at + math.prod(shape)].view(shape)
         at += math.prod(shape)
-    scale = 10.0 ** (1.0 / (len(_PRIOR_FILTERS) + 1))
+    scale = 10.0 ** (1.0 / (len(PRIOR_FILTERS) + 1))
     for name, shape in shapes.items():
         if name in out:
+            continue
+        if _is_gdn(name):
+            value = (torch.eye(shape[0], device=device) * 0.1 if name.endswith("/gamma")
+                     else torch.ones(shape, device=device))
+            out[name] = torch.sqrt(value + _PEDESTAL)
             continue
         if "/matrices/" in name:
             value = math.log(math.expm1(1.0 / scale / shape[1]))
