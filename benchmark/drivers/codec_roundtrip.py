@@ -9,12 +9,16 @@ images drawn from the seed. Rounds start until ``--seconds`` have passed.
 ``compress_img_s`` is every image compressed over the summed wall time of
 the compress phases, ``decompress_img_s`` likewise, and ``decode_p95_ms``
 the 95th percentile over every decode batch of the time from when the
-pipeline takes its blobs to when it yields its images.
+pipeline takes its blobs to when it yields its images (also in the record,
+for a cell that reports it per layer).
 
 Correctness: every batch must come back decoded, at its shape, without an
 error; a sample of the decoded batches drawn from the seed is then held
-against the reference (:mod:`benchmark.judge`). With ``--trace 1`` one more
-round runs under the profiler after the window.
+against the reference (:mod:`benchmark.judge`). With ``--trace 1`` the
+port's spans are recorded over the window's calls (their totals by name and
+phase, ``span_s``), and one more round runs under the profiler after the
+window, the device time of each phase by the port's span that launched it
+(``span_device_s``); with ``--trace 0`` nothing is recorded.
 """
 
 from __future__ import annotations
@@ -22,12 +26,13 @@ from __future__ import annotations
 import contextlib
 import statistics
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
-from benchmark import harness, judge, program, trace, weights
+from benchmark import harness, judge, program, spans, trace, weights
 from benchmark.harness import Context, Outcome
 from benchmark.reference import models
 from benchmark.traffic import images
@@ -130,6 +135,8 @@ def run(ctx: Context) -> Outcome:
     codec.timer.reset()
     _plant(codec, ctx.faults, getattr(program.family(ctx.config), "ROWS", "_mu_rows"))
 
+    recording = program.spans if ctx.trace else contextlib.nullcontext
+    closed = {"compress": [], "decompress": []}  # the port's spans of the window's calls
     rng = np.random.default_rng([ctx.seed, 1])
     sample = _Reservoir(ctx.workload["correct"]["sample_batches"], rng)
     attempted = failed = rounds = 0
@@ -143,8 +150,10 @@ def run(ctx: Context) -> Outcome:
         work = batches(first, per_round)
         attempted += per_round
         t0 = time.perf_counter()
-        blobs = list(codec.compress_iter(work, depth, coder))
+        with recording() as port_spans:
+            blobs = list(codec.compress_iter(work, depth, coder))
         comp_s += time.perf_counter() - t0
+        closed["compress"].append(port_spans)
         round_rates["compress"].append(per_round * batch / (time.perf_counter() - t0))
         comp_images += sum(len(b) for b in blobs)
         taken = []
@@ -156,18 +165,21 @@ def run(ctx: Context) -> Outcome:
 
         got = 0
         t0 = time.perf_counter()
-        try:
-            for i, out in enumerate(codec.decompress_iter(feed(), depth)):
-                latencies.append(time.perf_counter() - taken[i])
-                got += 1
-                if out.shape != work[i].shape or out.dtype != np.uint8:
-                    failed += 1
-                    continue
-                dec_images += len(out)
-                sample.offer(lambda i=i, out=out: (work[i], blobs[i], out))
-        except Exception as e:  # a decode that fails: its batch and the rest never come
-            print(f"round {rounds}: decode failed after {got} batches: {e!r}", file=sys.stderr)
+        with recording() as port_spans:
+            try:
+                for i, out in enumerate(codec.decompress_iter(feed(), depth)):
+                    latencies.append(time.perf_counter() - taken[i])
+                    got += 1
+                    if out.shape != work[i].shape or out.dtype != np.uint8:
+                        failed += 1
+                        continue
+                    dec_images += len(out)
+                    sample.offer(lambda i=i, out=out: (work[i], blobs[i], out))
+            except Exception as e:  # a decode that fails: its batch and the rest never come
+                print(f"round {rounds}: decode failed after {got} batches: {e!r}",
+                      file=sys.stderr)
         dec_s += time.perf_counter() - t0
+        closed["decompress"].append(port_spans)
         round_rates["decompress"].append(per_round * batch / (time.perf_counter() - t0))
         failed += per_round - got
         rounds += 1
@@ -194,18 +206,24 @@ def run(ctx: Context) -> Outcome:
         "host_s": {"compress": sum(v for k, v in host.items() if k.startswith("enc/")),
                    "decompress": sum(v for k, v in host.items() if k.startswith("dec/"))},
         "window_images": {"compress": comp_images, "decompress": dec_images},
+        "decode_p95_ms": end_to_end.get("decode_p95_ms"),
     }
     busy_s = traced_s = breakdown = None
     if ctx.trace:
+        # Every name, so that a span a family adds is read by a metric file alone.
+        record["span_s"] = {phase: spans.totals(s for lst in lists for s in lst)
+                            for phase, lists in closed.items()}
         rec = trace.Recorder(dev)
         work = batches(rounds * per_round, per_round)
-        with _stage_spans(codec, rec), rec.record():
+        with program.spans() as port_spans, _stage_spans(codec, rec), rec.record():
             with rec.span("phase:compress"):
                 blobs = list(codec.compress_iter(work, depth, coder))
             with rec.span("phase:decompress"):
                 for _ in codec.decompress_iter(blobs, depth):
                     pass
         phases = rec.phases()
+        attributed = spans.by_span(rec.prof, port_spans, rec.bounds(), threading.get_native_id())
+        record["span_device_s"] = {phase: a["device"] for phase, a in attributed.items()}
         record["phases"] = phases
         streams = models.y_streams(ctx.config)
         record["y_words"] = (sum(judge.y_words(b, streams) for bl in blobs for b in bl)
@@ -217,6 +235,7 @@ def run(ctx: Context) -> Outcome:
             notes.append(f"traced {p.name}: wall {p.wall_s:.4f} s, busy {p.busy_s:.4f} s, "
                          f"{p.activities} device activities; " + ", ".join(
                              f"{k} {v:.4f} s" for k, v in p.by_kind_s.items() if v))
+        notes.extend(spans.notes(attributed))
     peak = torch.cuda.max_memory_allocated(dev) if torch.device(dev).type == "cuda" else 0
 
     # The program's state goes before the reference runs.

@@ -22,16 +22,24 @@ the parameters after it, and the reference takes that one step from the
 copy (the program's own state: the first three steps check how it starts);
 its loss and the parameters' change are compared
 (:func:`benchmark.judge.window_numbers`).
+
+With ``--trace 1`` the port's spans are recorded over the window's steps
+(their totals by name, ``span_s``), and ``traced_steps`` more steps run
+under the profiler after the window, their device time by the port's span
+that launched it (``span_device_s``); with ``--trace 0`` nothing is
+recorded.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 
 import numpy as np
 import torch
 
-from benchmark import harness, judge, program, trace, weights
+from benchmark import harness, judge, program, spans, trace, weights
 from benchmark.harness import Context, Outcome
 from benchmark.reference import train as reference
 from benchmark.traffic import images
@@ -137,23 +145,25 @@ def run(ctx: Context) -> Outcome:
     snap = None
     steps, enqueue_s = 0, 0.0
     chunk_rates = []
+    recording = program.spans if ctx.trace else contextlib.nullcontext
     probe0 = harness.host_probe_ms()
     start = time.perf_counter()
     chunk_t = start
-    while time.perf_counter() - start < ctx.seconds or steps <= check_at:
-        batch = crops.next()
-        t0 = time.perf_counter()
-        if steps == check_at:
-            snap = _Snapshot(state, params, batch)
-        loss, _metrics = state.step(batch)
-        if steps == check_at:
-            snap.close(params, loss)
-        enqueue_s += time.perf_counter() - t0
-        steps += 1
-        if steps % 100 == 0:  # images a second over each 100 steps, as enqueued
-            now = time.perf_counter()
-            chunk_rates.append(100 * t["batch"] / (now - chunk_t))
-            chunk_t = now
+    with recording() as window_spans:
+        while time.perf_counter() - start < ctx.seconds or steps <= check_at:
+            batch = crops.next()
+            t0 = time.perf_counter()
+            if steps == check_at:
+                snap = _Snapshot(state, params, batch)
+            loss, _metrics = state.step(batch)
+            if steps == check_at:
+                snap.close(params, loss)
+            enqueue_s += time.perf_counter() - t0
+            steps += 1
+            if steps % 100 == 0:  # images a second over each 100 steps, as enqueued
+                now = time.perf_counter()
+                chunk_rates.append(100 * t["batch"] / (now - chunk_t))
+                chunk_t = now
     _sync(dev)
     window_s = time.perf_counter() - start
     launches = {k: v - launches0[k] for k, v in program.launches().items()}
@@ -166,8 +176,9 @@ def run(ctx: Context) -> Outcome:
     record = {"cfg": cfg, "traffic": t, "train_enqueue_s": enqueue_s, "train_steps": steps}
     busy_s = traced_s = breakdown = None
     if ctx.trace:
+        record["span_s"] = {"train": spans.totals(window_spans)}
         rec = trace.Recorder(dev)
-        with rec.record(), rec.span("phase:train"):
+        with program.spans() as port_spans, rec.record(), rec.span("phase:train"):
             for _ in range(t["traced_steps"]):
                 with rec.span("feed"):
                     batch = crops.next()
@@ -175,6 +186,8 @@ def run(ctx: Context) -> Outcome:
                     state.step(batch)
             _sync(dev)
         phases = rec.phases()
+        attributed = spans.by_span(rec.prof, port_spans, rec.bounds(), threading.get_native_id())
+        record["span_device_s"] = {phase: a["device"] for phase, a in attributed.items()}
         record["phases"] = phases
         record["phase_steps"] = {"train": t["traced_steps"]}
         busy_s = sum(p.busy_s for p in phases.values())
@@ -184,6 +197,7 @@ def run(ctx: Context) -> Outcome:
             notes.append(f"traced {p.name}: wall {p.wall_s:.4f} s, busy {p.busy_s:.4f} s, "
                          f"{p.activities} device activities; " + ", ".join(
                              f"{k} {v:.4f} s" for k, v in p.by_kind_s.items() if v))
+        notes.extend(spans.notes(attributed))
     peak = torch.cuda.max_memory_allocated(dev) if torch.device(dev).type == "cuda" else 0
 
     prog = {"losses": [float(v) for v in losses],

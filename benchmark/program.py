@@ -1,6 +1,6 @@
 """The system under test: the PyTorch/CUDA port's models, codecs and
 training step, built for a configuration through the port's own entry
-points. This module and the family files it finds by name
+points, and its spans and launch counters. This module and the family files it finds by name
 (``families/<family>.py``: ``build_model``, ``build_codec`` and, for a
 family that trains, ``make_loss_fn``) are the benchmark's only code that
 imports the port. A configuration adds its family by adding that file."""
@@ -44,6 +44,15 @@ def build_model(cfg: dict, flat: dict):
 
 def build_codec(cfg: dict, model, device):
     return family(cfg).build_codec(model, device)
+
+
+def spans():
+    """The port's ``recording()``: a context that yields the list of the
+    spans that every thread of the port closes meanwhile, whatever their
+    names."""
+    from compression_tpu_torch.util import profiling
+
+    return profiling.recording()
 
 
 def launches() -> dict:

@@ -28,6 +28,11 @@ CASES = [(cell, fault)
 def small(cell):
     wl = harness.load_json(harness.HERE / "workloads" / f"{cell}.json")
     cfg = harness.load_json(harness.HERE / "configs" / f"{CELLS[cell]['config']}.json")
+    return cpu_size(wl, cfg)
+
+
+def cpu_size(wl, cfg):
+    """A cell's workload and configuration at the CPU tests' small size."""
     t = wl["traffic"]
     if wl["driver"] == "train_step":
         t.update(batch=2, patch=64, height=96, width=128, pool=4, warmup_steps=4, traced_steps=2)

@@ -7,8 +7,9 @@ annotations are not activities); busy time is the union of their
 intervals; each activity is classed by its kernel's name (K1, the general
 GDN kernel, K3, K2, copies) or by the CPU ops it was launched under,
 innermost first (Adam, K1's backward, convolutions backward and forward),
-else ``other``; a kernel launched where the profiler records no CPU op (a
-worker thread of the codec's pipeline) is classed by its name alone. Each
+then by cuDNN's kernel names, else ``other``: a kernel launched where the
+profiler records no CPU op (a worker thread of the codec's pipeline), or
+linked to ops that name no class, is classed by its name alone. Each
 activity counts only the time no earlier one covers, so the kinds add up
 to the busy time. The host spans are the benchmark's own, taken on the
 wall clock in any thread, which the profiler's timestamps also count in.
@@ -42,12 +43,15 @@ def kind_of(kernel: str, ops: List[str]) -> str:
                         ("conv_forward", ("aten::convolution", "aten::conv2d"))):
         if any(part in chain for part in parts):
             return kind
-    if not ops:  # no CPU op recorded: cuDNN's convolution kernels by name
-        for kind, parts in (("conv_backward", ("dgrad", "wgrad")),
-                            ("conv_forward", ("fprop", "convolve", "winograd", "fft",
-                                              "nhwctonchw", "nchwtonhwc"))):
-            if any(part in low for part in parts):
-                return kind
+    # cuDNN's convolution kernels by name, where the ops name no class: no
+    # CPU op recorded (a pipeline worker thread), or a few launches a traced
+    # round that the profiler links to its own ``Buffer Flush`` or to a
+    # convolution op without the ``aten::convolution`` above it.
+    for kind, parts in (("conv_backward", ("dgrad", "wgrad")),
+                        ("conv_forward", ("fprop", "convolve", "winograd", "fft",
+                                          "nhwctonchw", "nchwtonhwc"))):
+        if any(part in low for part in parts):
+            return kind
     return "other"
 
 
@@ -115,6 +119,11 @@ class Recorder:
         finally:
             self._recording.clear()
         self.prof = prof
+
+    def bounds(self) -> Dict[str, Tuple[int, int]]:
+        """(start_ns, end_ns) of each phase span, by phase."""
+        return {name[len("phase:"):]: (start, end) for start, end, name in self.spans
+                if name.startswith("phase:")}
 
     def phases(self) -> Dict[str, Phase]:
         from torch.autograd import DeviceType
