@@ -154,6 +154,13 @@ of a checkout. Phases, each fatal on failure:
     residual add) against its twin, timed beside its bytes bound (x, the
     residual and out once each over 3.35 TB/s), the twin and
     ``F.layer_norm`` with the same bias, ReLU and add (the yardstick only);
+    h. the 3x3 convolution kernel (``csrc/conv3x3.cu``) at the generator's
+    conv_in and residual calls of a decoded batch (1 and 18), its largest
+    error against float64 within 2x of its twin's (cuDNN in float32), timed
+    beside its 3xTF32 bound (495 TFLOP/s), the float32 CUDA-core bound (67
+    TFLOP/s), the twin and ``F.conv2d`` on NCHW tensors (the yardstick
+    only); its launches (0 a compressed and 19 a decoded HiFiC batch) held
+    on every path of the run, none off HiFiC's;
 14. the tfci CLI (``compression_tpu_torch.cli.tfci``) in a model directory
     of its own that holds ckpt/bmshj2018.msgpack as
     bmshj2018-hyperprior.msgpack, on a structured 768x512 PNG written by the
@@ -422,7 +429,7 @@ def phase_build() -> None:
 
     with cf.ThreadPoolExecutor(4) as pool:
         nvcc = {src: pool.submit(timed, cuda_build.build, src)
-                for src in ("gdn.cu", "rans.cu", "channel_norm.cu")}
+                for src in ("gdn.cu", "rans.cu", "channel_norm.cu", "conv3x3.cu")}
         gxx = pool.submit(timed, binding.get_lib)
         log("build: " + ", ".join(f"nvcc {src} {fut.result():.1f} s"
                                   for src, fut in nvcc.items())
@@ -436,6 +443,11 @@ def phase_build() -> None:
         "memory a CTA (gamma slice hi+lo, two x stages)")
     for line in check_tensor_core_sass(cuda_build.sass("gdn.cu")):
         log(f"  sass gdn.cu {line}")
+    conv_sass = cuda_build.sass("conv3x3.cu")
+    hgmma = len(re.findall(r"\bHGMMA\b", conv_sass))
+    if not hgmma:
+        raise AssertionError("sass: conv3x3.cu's kernel has no HGMMA")
+    log(f"  sass conv3x3.cu: {hgmma} HGMMA")
 
 
 # The tensor-core instruction each GDN kernel must compile to, by the
@@ -880,11 +892,12 @@ def num_streams(codec) -> int:
 
 def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
                 cpu_check: bool = True, gdn: int = 6, gdn_general: int = 0,
-                norm: tuple = (0, 0)) -> tuple:
+                norm: tuple = (0, 0), conv: tuple = (0, 0)) -> tuple:
     """A hyperprior codec's host-coded path: launches over exactly
     compress_batch + decompress_batch (``gdn`` for K1, ``gdn_general`` for
-    the general GDN kernel, ``norm`` for the fused ChannelNorm's in the
-    compress and in the decompress), byte-identical
+    the general GDN kernel, ``norm`` for the fused ChannelNorm's and
+    ``conv`` for the 3x3 convolution kernel's in the compress and in the
+    decompress), byte-identical
     re-compression, batch-1 decode equal to the batch-8 decode, PSNR and
     bpp (PSNR held to ``min_psnr`` where the weights are trained ones), and
     with ``cpu_check`` a small input against the CPU path of ``module``.
@@ -892,6 +905,7 @@ def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
     from compression_tpu_torch.models.device_coding import num_fields
 
     from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
+    from compression_tpu_torch.layers.conv3x3_kernel import conv3x3
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.util.image import psnr_np
 
@@ -899,22 +913,25 @@ def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
 
     # The path's run: the counts cover exactly compress + decompress.
     fused_gdn.launches = fused_gdn_general.launches = fused_channel_norm.launches = 0
+    conv3x3.launches = 0
     t0 = time.perf_counter()
     blobs = codec.compress_batch(images)
     t1 = time.perf_counter()
-    norm_c = fused_channel_norm.launches
+    norm_c, conv_c = fused_channel_norm.launches, conv3x3.launches
     out = codec.decompress_batch(blobs)
     t2 = time.perf_counter()
     launches = {"gdn": fused_gdn.launches, "gdn_general": fused_gdn_general.launches,
-                "channel_norm": fused_channel_norm.launches}
+                "channel_norm": fused_channel_norm.launches, "conv3x3": conv3x3.launches}
     log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress {1e3 * (t1 - t0):.1f} ms, "
         f"decompress {1e3 * (t2 - t1):.1f} ms; K1 launches {launches['gdn']}, general "
         f"GDN kernel {launches['gdn_general']}, ChannelNorm's kernel {norm_c} + "
-        f"{launches['channel_norm'] - norm_c}")
-    if (launches != {"gdn": gdn, "gdn_general": gdn_general, "channel_norm": sum(norm)}
-            or norm_c != norm[0]):
-        raise AssertionError(f"expected {gdn} K1, {gdn_general} general GDN and {norm} "
-                             f"ChannelNorm launches, saw {launches} ({norm_c} compressing)")
+        f"{launches['channel_norm'] - norm_c}, the 3x3 convolution kernel {conv_c} + "
+        f"{launches['conv3x3'] - conv_c}")
+    if (launches != {"gdn": gdn, "gdn_general": gdn_general, "channel_norm": sum(norm),
+                     "conv3x3": sum(conv)} or (norm_c, conv_c) != (norm[0], conv[0])):
+        raise AssertionError(f"expected {gdn} K1, {gdn_general} general GDN, {norm} "
+                             f"ChannelNorm and {conv} 3x3 convolution launches, saw "
+                             f"{launches} ({norm_c}, {conv_c} compressing)")
     if out.shape != images.shape or out.dtype != np.uint8:
         raise AssertionError(f"bad output {out.shape} {out.dtype}")
     fields = num_streams(codec) + 3
@@ -940,41 +957,44 @@ def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
 
 def phase_codec_device(codec, images, host_blobs, host_out,
                        label: str = "codec (device coder)", gdn: int = 6,
-                       norm: tuple = (0, 0)) -> dict:
+                       norm: tuple = (0, 0), conv: tuple = (0, 0)) -> dict:
     """A device-coded path: launches over exactly compress_batch +
     decompress_batch (K3 2 and K2 1 a y stream, K1 ``gdn``, the fused
-    ChannelNorm ``norm`` in the compress and in the decompress), and its outputs
+    ChannelNorm ``norm`` and the 3x3 convolution kernel ``conv`` in the
+    compress and in the decompress), and its outputs
     against the host coder's; each y stream within 1.1x the host coder's
     string for it plus the lane states. The general GDN kernel must not run."""
     from compression_tpu_torch.codec import rans
     from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
+    from compression_tpu_torch.layers.conv3x3_kernel import conv3x3
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.util import PackedTensors
     from compression_tpu_torch.util.image import psnr_np
 
     codec.decompress_batch(codec.compress_batch(images[:1], coder="device"))  # warm-up
     rans.rans_encode.launches = rans.rans_decode.launches = fused_gdn.launches = 0
-    fused_gdn_general.launches = fused_channel_norm.launches = 0
+    fused_gdn_general.launches = fused_channel_norm.launches = conv3x3.launches = 0
     rans.rans_decode.variant_launches.update({"on_chip": 0, "global": 0})
     t0 = time.perf_counter()
     blobs = codec.compress_batch(images, coder="device")
     t1 = time.perf_counter()
-    norm_c = fused_channel_norm.launches
+    norm_c, conv_c = fused_channel_norm.launches, conv3x3.launches
     out = codec.decompress_batch(blobs)
     t2 = time.perf_counter()
     launches = {"rans_encode": rans.rans_encode.launches,
                 "rans_decode": rans.rans_decode.launches, "gdn": fused_gdn.launches,
                 "gdn_general": fused_gdn_general.launches,
-                "channel_norm": fused_channel_norm.launches}
+                "channel_norm": fused_channel_norm.launches, "conv3x3": conv3x3.launches}
     log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress "
         f"{1e3 * (t1 - t0):.1f} ms, decompress {1e3 * (t2 - t1):.1f} ms; launches {launches} "
-        f"(ChannelNorm's kernel {norm_c} compressing)")
+        f"(ChannelNorm's kernel {norm_c}, the 3x3 convolution kernel {conv_c} compressing)")
     S = num_streams(codec)
     if launches != {"rans_encode": 2 * S, "rans_decode": S, "gdn": gdn, "gdn_general": 0,
-                    "channel_norm": sum(norm)} or norm_c != norm[0]:
+                    "channel_norm": sum(norm), "conv3x3": sum(conv)} or (
+                        norm_c, conv_c) != (norm[0], conv[0]):
         raise AssertionError(f"expected K3 {2 * S} (fields, lanes a stream), K2 {S}, "
-                             f"K1 {gdn}, ChannelNorm {norm} launches, saw {launches} "
-                             f"({norm_c} compressing)")
+                             f"K1 {gdn}, ChannelNorm {norm}, 3x3 convolution {conv} launches, "
+                             f"saw {launches} ({norm_c}, {conv_c} compressing)")
     variants = dict(rans.rans_decode.variant_launches)
     if variants != {"on_chip": S, "global": 0}:
         raise AssertionError(f"expected K2's on-chip variant {S} times, saw {variants}")
@@ -2111,7 +2131,7 @@ def count_hific_step_launches(cfg) -> dict:
     norm = sum(hific_norm_launches(cfg))  # one forward of the encoder and the generator
     if launches != launches_of(norm=norm):
         raise AssertionError(f"13b: expected K1 0, K3 0, K2 0, general GDN 0, ChannelNorm "
-                             f"{norm} launches, saw {launches}")
+                             f"{norm}, 3x3 convolution 0 launches, saw {launches}")
     prof = profile_device(f"13b 3 joint steps of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}",
                           lambda: [step(x, gen) for _ in range(3)], steps=3, top=8)
     return launches, prof
@@ -2277,11 +2297,91 @@ def time_channel_norm(cfg, card: str, reps: int) -> dict:
     return result
 
 
+def conv3x3_calls(cfg) -> list:
+    """13h: the 3x3 convolution kernel's calls of a decoded batch of BATCH
+    HEIGHTxWIDTH images, as ``(label, (N, H, W, cin, cout), calls a
+    batch)``: the generator's conv_in and two a residual block."""
+    h, w = HEIGHT // 16, WIDTH // 16
+    return [("conv_in", (BATCH, h, w, cfg.num_latents, 960), 1),
+            ("residual", (BATCH, h, w, 960, 960), 2 * cfg.num_residual_blocks)]
+
+
+def conv3x3_bounds_ms(shape) -> dict:
+    """The least ms of one call: its 3xTF32 products at the tensor cores'
+    TF32 rate (the kernel's bound), and its float32 multiply-adds on the
+    CUDA cores (any float32 kernel without the tensor cores)."""
+    n, h, w, cin, cout = shape
+    flops = 2 * n * h * w * cout * 9 * cin
+    return {"bound_ms": 1e3 * 3 * flops / PEAK_TF32_FLOPS,
+            "fp32_bound_ms": 1e3 * flops / PEAK_FP32_FLOPS}
+
+
+def time_conv3x3(cfg, card: str, reps: int) -> dict:
+    """13h: the 3x3 convolution kernel at each call of a decoded batch: its
+    largest error against float64 within 2x of its twin's (cuDNN in float32,
+    TF32 off, through the channels-last view, as the port ran these
+    convolutions before), and its time beside its bounds, the twin's and
+    ``F.conv2d``'s on NCHW tensors (cuDNN in its own layout, the yardstick),
+    each replayed from a CUDA graph (:func:`graph_ms`), in turns (twin,
+    kernel, yardstick, kernel, twin); each call's time counted as often as a
+    batch makes it."""
+    import torch.nn.functional as F
+
+    from compression_tpu_torch.layers.conv3x3_kernel import conv3x3, conv3x3_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, fp32_bound_ms=0.0)
+    rows_out = []
+    for label, shape, count in conv3x3_calls(cfg):
+        n, h, w, cin, cout = shape
+        x = torch.randn(n, h, w, cin, device="cuda", generator=gen)
+        weight = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / (9 * cin) ** 0.5
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        with torch.inference_mode():
+            got = conv3x3(x, weight)
+            want = conv3x3_reference(x.double(), weight.double())
+            err = (got.double() - want).abs().max().item()
+            plain_err = (conv3x3_reference(x, weight).double() - want).abs().max().item()
+            if err > 2 * plain_err:
+                raise AssertionError(f"13h {label}: kernel {err:.3e} from float64, twin "
+                                     f"{plain_err:.3e}")
+            del got, want
+            runs = {"plain_ms": [], "ms": [], "library_ms": []}
+            for key, fn in (("plain_ms", lambda: conv3x3_reference(x, weight)),
+                            ("ms", lambda: conv3x3(x, weight)),
+                            ("library_ms", lambda: F.conv2d(x_nchw, weight, padding=1)),
+                            ("ms", lambda: conv3x3(x, weight)),
+                            ("plain_ms", lambda: conv3x3_reference(x, weight))):
+                runs[key].append(graph_ms(fn, reps))
+        times = {k: sum(v) / len(v) for k, v in runs.items()}
+        bounds = conv3x3_bounds_ms(shape)
+        for k in ("ms", "plain_ms", "library_ms"):
+            total[k] += count * times[k]
+        for k, v in bounds.items():
+            total[k] += count * v
+        share = 100 * bounds["bound_ms"] / times["ms"]
+        rows_out.append(dict(label=label, shape=shape, count=count, bound_share=share,
+                             max_abs_err=err, plain_max_abs_err=plain_err, **bounds, **times))
+        log(f"  13h {label} {'x'.join(map(str, shape))} x{count}: kernel {times['ms']:.4f} ms, "
+            f"{share:.1f}% of its 3xTF32 bound {bounds['bound_ms']:.4f} ms (float32 CUDA-core "
+            f"bound {bounds['fp32_bound_ms']:.4f} ms); twin {times['plain_ms']:.4f} ms; "
+            f"F.conv2d NCHW {times['library_ms']:.4f} ms; max_abs_err {err:.3e} (twin "
+            f"{plain_err:.3e})")
+        del x, x_nchw
+    log(f"13h 3x3 convolutions of a decoded batch of {BATCH} ({card}): kernel "
+        f"{total['ms']:.4f} ms ({total['ms'] / BATCH:.4f} an image), bound "
+        f"{total['bound_ms']:.4f} ms (3xTF32), {100 * total['bound_ms'] / total['ms']:.1f}% of "
+        f"it; float32 CUDA-core bound {total['fp32_bound_ms']:.4f} ms; twin "
+        f"{total['plain_ms']:.4f} ms; F.conv2d NCHW {total['library_ms']:.4f} ms")
+    return dict(calls=rows_out, **total)
+
+
 def phase_hific(card: str, reps: int, batches: int) -> dict:
     """Phase 13: HiFiC hific-mi at full width: one joint step against the
     CPU, training from the seed and a step's launches, the codec of the
     trained model with both coders, K3 and K2 on its symbols and rows,
-    throughput, a profile by kind, and the fused ChannelNorm's kernel."""
+    throughput, a profile by kind, the fused ChannelNorm's kernel and the
+    3x3 convolution kernel."""
     from compression_tpu_torch.models import hific
     from compression_tpu_torch.util.image import pad_to_multiple_np
 
@@ -2296,10 +2396,10 @@ def phase_hific(card: str, reps: int, batches: int) -> dict:
     images = structured_images()
     host_blobs, host_out, host_launches = phase_codec(
         codec, images, hific, label="13c hific codec", min_psnr=None, gdn=0,
-        norm=hific_norm_launches(cfg))
+        norm=hific_norm_launches(cfg), conv=hific_conv_launches(cfg))
     launches = phase_codec_device(codec, images, host_blobs, host_out,
                                   label="13c hific codec (device coder)", gdn=0,
-                                  norm=hific_norm_launches(cfg))
+                                  norm=hific_norm_launches(cfg), conv=hific_conv_launches(cfg))
     x = torch.from_numpy(pad_to_multiple_np(images, 64)[0]).to(DEVICE).float() / 255.0
     with torch.no_grad():
         coded = float(codec.model.coded_bpp(x))
@@ -2316,9 +2416,11 @@ def phase_hific(card: str, reps: int, batches: int) -> dict:
         lambda: codec.decompress_batch(codec.compress_batch(images, coder=coder)), top=8)
         for coder in ("host", "device")}
     norm = time_channel_norm(cfg, card, reps)
+    conv = time_conv3x3(cfg, card, reps)
     return dict(train=train, host_launches=host_launches, launches=launches, rans=rans_k,
                 throughput=rates, profile=profiles, coded_bpp=coded, host_bpp=host_bpp,
-                channel_norm=norm, norm_launches=hific_norm_launches(cfg))
+                channel_norm=norm, norm_launches=hific_norm_launches(cfg), conv3x3=conv,
+                conv_launches=hific_conv_launches(cfg))
 
 
 # -- phase 14: the tfci CLI ---------------------------------------------------
@@ -2344,27 +2446,29 @@ CLI_GDN = {"bls2017": 2, "bmshj2018-factorized": 3, "mbt2018": 3,
 def reset_launches() -> None:
     from compression_tpu_torch.codec import rans
     from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
+    from compression_tpu_torch.layers.conv3x3_kernel import conv3x3
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
 
     fused_gdn.launches = rans.rans_encode.launches = rans.rans_decode.launches = 0
-    fused_gdn_general.launches = fused_channel_norm.launches = 0
+    fused_gdn_general.launches = fused_channel_norm.launches = conv3x3.launches = 0
 
 
 def read_launches() -> dict:
     from compression_tpu_torch.codec import rans
     from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
+    from compression_tpu_torch.layers.conv3x3_kernel import conv3x3
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
 
     return {"gdn": fused_gdn.launches, "rans_encode": rans.rans_encode.launches,
             "rans_decode": rans.rans_decode.launches,
             "gdn_general": fused_gdn_general.launches,
-            "channel_norm": fused_channel_norm.launches}
+            "channel_norm": fused_channel_norm.launches, "conv3x3": conv3x3.launches}
 
 
 def launches_of(gdn: int = 0, enc: int = 0, dec: int = 0, general: int = 0,
-                norm: int = 0) -> dict:
+                norm: int = 0, conv: int = 0) -> dict:
     return {"gdn": gdn, "rans_encode": enc, "rans_decode": dec, "gdn_general": general,
-            "channel_norm": norm}
+            "channel_norm": norm, "conv3x3": conv}
 
 
 def hific_norm_launches(cfg) -> tuple:
@@ -2372,6 +2476,13 @@ def hific_norm_launches(cfg) -> tuple:
     a batch: the encoder's 5 norms; the generator's norm_in, norm_head, two a
     residual block and the up-path's 4."""
     return 5, 2 + 2 * cfg.num_residual_blocks + 4
+
+
+def hific_conv_launches(cfg) -> tuple:
+    """The 3x3 convolution kernel's launches of one HiFiC encode and one
+    decode of a batch: none encoding (7x7 and stride-2 convolutions); the
+    generator's conv_in and two a residual block."""
+    return 0, 1 + 2 * cfg.num_residual_blocks
 
 
 def tfci(argv: list, want=None, device: str = None, label: str = None) -> tuple:
@@ -2482,17 +2593,19 @@ def cli_round_trips(tmp, png, name, coders, extra) -> dict:
     streams = 4 if name == "ms2020" else 1  # TPC_TINY_MODELS: 4 slices
     norm_c, norm_d = (hific_norm_launches(hific.get_config(name)) if name.startswith("hific")
                       else (0, 0))
+    conv_c, conv_d = (hific_conv_launches(hific.get_config(name)) if name.startswith("hific")
+                      else (0, 0))
     for coder in coders:
         dev = coder == "device"
         tfci_file, out_png = str(tmp / f"{name}_{coder}.tfci"), str(tmp / f"{name}_{coder}.png")
         flag = ["--device-coder"] if dev else []
         launches[f"compress ({coder})"] = tfci(
             ["compress", name, png, tfci_file, *extra, *flag],
-            want=launches_of(gdn, 2 * streams if dev else 0, norm=norm_c))[1]
+            want=launches_of(gdn, 2 * streams if dev else 0, norm=norm_c, conv=conv_c))[1]
         launches[f"decompress ({coder})"] = tfci(
             ["decompress", tfci_file, out_png, *(["--allow-random"] if "--allow-random" in extra
                                                  else [])],
-            want=launches_of(gdn, 0, streams if dev else 0, norm=norm_d))[1]
+            want=launches_of(gdn, 0, streams if dev else 0, norm=norm_d, conv=conv_d))[1]
         decoded[coder] = read_png(out_png)
         if decoded[coder].shape != (HEIGHT, WIDTH, 3):
             raise AssertionError(f"{name}: decoded shape {decoded[coder].shape}")
@@ -3937,6 +4050,14 @@ def main() -> int:
     if unread or amiss:
         raise AssertionError(f"ChannelNorm's kernel count was not read on {unread}, or it ran "
                              f"off HiFiC's paths or not on them: {amiss}")
+    # The 3x3 convolution kernel: read on every path, launched on HiFiC's
+    # decoding paths alone (its training and sharded paths keep cuDNN).
+    unread = [path for path, counts in every.items() if "conv3x3" not in counts]
+    amiss = {path: counts["conv3x3"] for path, counts in every.items()
+             if counts.get("conv3x3") and not on_hific(path)}
+    if unread or amiss:
+        raise AssertionError(f"the 3x3 convolution kernel's count was not read on {unread}, "
+                             f"or it ran off HiFiC's paths: {amiss}")
 
     kernels = [{
         "name": "gdn",
@@ -3981,6 +4102,21 @@ def main() -> int:
         "bound_by": "bytes",
         "train_launches": hi["train"]["launches"]["channel_norm"],
         "paths": {path: counts["channel_norm"] for path, counts in every.items()},
+    })
+    conv = hi["conv3x3"]
+    kernels.append({
+        "name": "conv3x3",
+        "route": "cuda",
+        "source": "compression_tpu_torch/csrc/conv3x3.cu",
+        "replaces": None,  # the JAX package leaves its convolutions to XLA
+        "launches": hi["launches"]["conv3x3"],  # HiFiC's device-coded round trip
+        "per_batch": dict(zip(("compress", "decompress"), hi["conv_launches"])),
+        "max_abs_err": max(row["max_abs_err"] for row in conv["calls"]),
+        "plain_max_abs_err": max(row["plain_max_abs_err"] for row in conv["calls"]),
+        **{k: conv[k] for k in ("ms", "plain_ms", "bound_ms", "fp32_bound_ms", "library_ms")},
+        "bound_by": "3xTF32 operations",
+        "train_launches": hi["train"]["launches"]["conv3x3"],
+        "paths": {path: counts["conv3x3"] for path, counts in every.items()},
     })
     for name, replaces in (("rans_encode", "compression_tpu/codec/rans.py:178"),
                            ("rans_decode", "compression_tpu/codec/rans.py:257")):

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
+from compression_tpu_torch.layers.conv3x3_kernel import conv3x3
 from compression_tpu_torch.layers.signal_conv import (
     SignalConv2D,
     conv_nhwc,
@@ -70,18 +71,40 @@ def _conv(cin, cout, k, gen, **kw):
                         use_bias=True, generator=gen, **kw)
 
 
+def _takes_conv3x3(conv: SignalConv2D, x, weight) -> bool:
+    """Whether :func:`conv3x3` computes ``conv`` on ``x``, on the card: a
+    dense stride-1 3x3 correlation with zero "same" padding, in float32,
+    with widths that are multiples of 4, where no gradient is wanted (the
+    generator's ``conv_in`` and residual blocks as the codec decodes; the
+    encoder's 7x7 and stride-2 convolutions, the up-convolutions, float64
+    and training keep ``signal_conv``)."""
+    wants_grad = torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad)
+    return (tuple(conv.support) == (3, 3) and conv.corr and conv.padding == "same_zeros"
+            and tuple(conv.strides_down) == (1, 1) and tuple(conv.strides_up) == (1, 1)
+            and not conv.channel_separable and x.dtype == torch.float32
+            and weight.dtype == torch.float32 and x.shape[-1] % 4 == 0
+            and weight.shape[0] % 4 == 0 and not wants_grad)
+
+
 def _conv_norm(conv: SignalConv2D, norm: ChannelNorm, x, residual=None, relu: bool = False):
     """``norm(conv(x))`` with the convolution's bias, and the ReLU or the
     residual add after the norm, handed to the norm's one pass: the
-    convolution runs as ``SignalConv2D.forward`` would, without its bias."""
+    convolution runs as ``SignalConv2D.forward`` would, without its bias, or
+    on the card as :func:`conv3x3` where :func:`_takes_conv3x3` says so."""
     if conv.activation is not None:
         raise ValueError("a convolution before a ChannelNorm has no activation of its own")
-    y = signal_conv(x, conv.kernel(), corr=conv.corr, strides_down=conv.strides_down,
-                    strides_up=conv.strides_up, padding=conv.padding,
-                    extra_pad_end=conv.extra_pad_end, channel_separable=conv.channel_separable)
-    # The norm takes contiguous (rows, C) rows: cuDNN's float32 convolutions
-    # leave channels-last memory, which is that already; its float64 ones
-    # leave NCHW memory, copied here.
+    weight = conv.kernel()
+    if x.device.type == "cuda" and _takes_conv3x3(conv, x, weight):
+        with span("hific/generator_conv"):
+            y = conv3x3(x, weight)
+    else:
+        y = signal_conv(x, weight, corr=conv.corr, strides_down=conv.strides_down,
+                        strides_up=conv.strides_up, padding=conv.padding,
+                        extra_pad_end=conv.extra_pad_end,
+                        channel_separable=conv.channel_separable)
+    # The norm takes contiguous (rows, C) rows: conv3x3 and cuDNN's float32
+    # convolutions leave channels-last memory, which is that already; cuDNN's
+    # float64 ones leave NCHW memory, copied here.
     return norm(y.contiguous(), bias=conv.bias, residual=residual, relu=relu)
 
 

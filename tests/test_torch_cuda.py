@@ -1,6 +1,7 @@
 """Tests of the port that need the card: the CUDA kernels (K1 fused GDN at
 any width up to 192, the general GDN kernel at any width and dtype, K3/K2
-rANS encode/decode) against their plain twins, K1 and the general kernel
+rANS encode/decode, HiFiC's ChannelNorm and 3x3 convolution) against their
+plain twins, K1 and the general kernel
 under autograd, the single-program decode's CUDA graphs and their launch
 counts, the codecs on the card (bmshj2018 with either coder,
 bls2017 in both archs, mbt2018 with either coder, b2018 at 192 filters,
@@ -32,6 +33,7 @@ from compression_tpu_torch.layers import (fused_gdn, fused_gdn_general, fused_gd
 from compression_tpu_torch.layers import channel_norm_kernel
 from compression_tpu_torch.layers.channel_norm_kernel import (fused_channel_norm,
                                                            fused_channel_norm_reference)
+from compression_tpu_torch.layers.conv3x3_kernel import conv3x3, conv3x3_reference
 from compression_tpu_torch.layers.gdn_kernel import FusedGDN
 from compression_tpu_torch.entropy_models import continuous_batched, continuous_indexed
 from compression_tpu_torch.models import (b2018, bls2017, bmshj2018, common, hific, mbt2018,
@@ -960,8 +962,8 @@ def test_hific_joint_step_on_card_matches_cpu(cuda, monkeypatch):
     it on the card than 3x the CPU's distance, for the worst tensor and the
     median one (a ReLU at the 2 x 8 x 8 latents that flips where a forward
     is an ulp from 0 moves a gradient by ~1/128 of its sum, so float32 is
-    not held to the CPU's float32). No GDN or rANS kernel launches in a
-    training step; ChannelNorm's kernel launches once a norm (13 calls) on
+    not held to the CPU's float32). No GDN, rANS or 3x3 convolution kernel
+    launches in a training step; ChannelNorm's kernel launches once a norm (13 calls) on
     the card, in float32 and in float64 (its general path)."""
     cfg = hific.HificConfig(name="hific-test", target_rate=0.3, num_latents=8,
                             num_hyperlatents=4, num_residual_blocks=1)
@@ -980,12 +982,13 @@ def test_hific_joint_step_on_card_matches_cpu(cuda, monkeypatch):
         disc = hific.Discriminator(cfg.num_latents, seed=4).to(device, dtype)
         lpips = hific_lpips.LPIPS(seed=5).requires_grad_(False).to(device, dtype)
         step, _, _ = hific.make_train_steps(model, disc, lpips, cfg)
-        counts = (fused_gdn.launches, rans.rans_encode.launches, rans.rans_decode.launches)
+        counts = (fused_gdn.launches, rans.rans_encode.launches, rans.rans_decode.launches,
+                  conv3x3.launches)
         norms = fused_channel_norm.launches
         metrics = step(x.to(device, dtype), None)
         assert queue == []
         assert (fused_gdn.launches, rans.rans_encode.launches,
-                rans.rans_decode.launches) == counts
+                rans.rans_decode.launches, conv3x3.launches) == counts
         assert fused_channel_norm.launches - norms == (13 if device == cuda else 0)
         tensors = {**{f"G {n}": p.grad.cpu() for n, p in model.named_parameters()},
                    **{f"D {n}": p.grad.cpu() for n, p in disc.named_parameters()},
@@ -1220,20 +1223,23 @@ def test_channel_norm_kernel_in_float64_matches_twin(cuda, c, flags):
 
 def test_hific_float32_norms_take_rows_as_the_convolutions_leave_them(cuda, monkeypatch):
     """Over a float32 hific-mi round trip on the card every convolution
-    before a norm, and the latents before ``norm_in``, leave contiguous
-    rows, so the networks' ``.contiguous()`` before a norm copies nothing
-    there (cuDNN's float64 convolutions leave NCHW memory, which it copies)."""
+    before a norm (through ``signal_conv`` or the 3x3 kernel), and the
+    latents before ``norm_in``, leave contiguous rows, so the networks'
+    ``.contiguous()`` before a norm copies nothing there (cuDNN's float64
+    convolutions leave NCHW memory, which it copies)."""
     from compression_tpu_torch.models.hific import archs as hific_archs
 
     seen = []
-    conv = hific_archs.signal_conv
 
-    def spy(*args, **kwargs):
-        y = conv(*args, **kwargs)
-        seen.append(y.is_contiguous())
-        return y
+    def spy(conv):
+        def run(*args, **kwargs):
+            y = conv(*args, **kwargs)
+            seen.append(y.is_contiguous())
+            return y
+        return run
 
-    monkeypatch.setattr(hific_archs, "signal_conv", spy)
+    monkeypatch.setattr(hific_archs, "signal_conv", spy(hific_archs.signal_conv))
+    monkeypatch.setattr(hific_archs, "conv3x3", spy(hific_archs.conv3x3))
     gpu = hific.Codec(hific.HificModel(hific.get_config("hific-mi"), seed=3), device=cuda)
     gpu.model.generator.register_forward_pre_hook(
         lambda module, args: seen.append(args[0].is_contiguous()))
@@ -1256,6 +1262,95 @@ def test_channel_norm_launches_on_the_codec_paths(cuda):
     codec = bmshj2018.Codec(bmshj2018.load_model(CKPT), device=cuda)
     codec.decompress_batch(codec.compress_batch(images, coder="device"))
     assert fused_channel_norm.launches == before + 5 + 24
+
+
+# -- HiFiC's 3x3 convolution kernel -------------------------------------------------
+
+# (N, H, W, cin, cout): a residual block's convolution and conv_in of a batch
+# of eight 768x512 images, and a residual block of two 128x192 images (an
+# 8x12 latent grid: tiles of 8x16 pixels past the grid's edge).
+CONV_SHAPES = [(8, 32, 48, 960, 960), (8, 32, 48, 220, 960), (2, 8, 12, 960, 960)]
+
+
+def _conv_inputs(shape, device, seed=0):
+    n, h, w, cin, cout = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, h, w, cin, generator=gen, device=device)
+    weight = torch.randn(cout, cin, 3, 3, generator=gen, device=device) / (9 * cin) ** 0.5
+    return x, weight
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=["residual", "conv_in", "ragged"])
+def test_conv3x3_kernel_is_as_near_float64_as_cudnn(cuda, shape):
+    """The kernel's largest error against the float64 convolution is within
+    2x of cuDNN's float32 (TF32 off), whose sums round to nearest on the
+    CUDA cores; the twin on the card is that cuDNN call."""
+    x, weight = _conv_inputs(shape, cuda)
+    with torch.inference_mode():
+        before = conv3x3.launches
+        got = conv3x3(x, weight)
+        assert conv3x3.launches == before + 1
+        assert got.shape == shape[:3] + (shape[4],) and got.is_contiguous()
+        want = conv3x3_reference(x.double(), weight.double())
+        cudnn = conv3x3_reference(x, weight)
+        err = (got.double() - want).abs().max().item()
+        cudnn_err = (cudnn.double() - want).abs().max().item()
+    assert err <= 2 * cudnn_err, (err, cudnn_err)
+
+
+def test_conv3x3_rows_are_the_same_alone_as_in_a_batch(cuda):
+    """An image's output is bit-equal alone and in a batch of 8, and on a
+    second run."""
+    x, weight = _conv_inputs(CONV_SHAPES[0], cuda, seed=1)
+    with torch.inference_mode():
+        batch = conv3x3(x, weight)
+        assert torch.equal(conv3x3(x, weight), batch)
+        for i in (0, 3, 7):
+            assert torch.equal(conv3x3(x[i:i + 1].contiguous(), weight)[0], batch[i])
+
+
+def test_conv3x3_follows_a_changed_weight(cuda):
+    """The weight's TF32 split is kept while the weight is unchanged; an
+    in-place change of the weight is never served from the old split."""
+    x, weight = _conv_inputs((2, 8, 12, 64, 36), cuda, seed=2)
+    weight = torch.nn.Parameter(weight)
+    with torch.inference_mode():
+        first = conv3x3(x, weight)
+    with torch.no_grad():
+        weight.mul_(-0.5)
+    with torch.inference_mode():
+        second = conv3x3(x, weight)
+        want = conv3x3_reference(x.double(), weight.double())
+    torch.testing.assert_close(second.double(), want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(second, -0.5 * first, rtol=1e-5, atol=1e-6)
+
+
+def test_conv3x3_rejects_what_it_cannot_take(cuda):
+    x, weight = _conv_inputs((1, 4, 4, 8, 12), cuda)
+    with pytest.raises(TypeError):
+        conv3x3(x.double(), weight.double())
+    with pytest.raises(ValueError):
+        conv3x3(x.permute(0, 2, 1, 3), weight)  # not contiguous
+    with pytest.raises(ValueError):
+        conv3x3(x[..., :6].contiguous(), weight[:, :6].contiguous())  # cin 6
+    with pytest.raises(ValueError):
+        conv3x3(x, weight.cpu())
+
+
+def test_conv3x3_launches_on_the_codec_paths(cuda):
+    """hific-mi's device-coded codec on 2 images of 96x130 launches the
+    kernel 19 times a decoded batch (conv_in and 9 residual blocks' two) and
+    none a compressed one; a bmshj2018 round trip launches it 0 times."""
+    gpu = hific.Codec(hific.HificModel(hific.get_config("hific-mi"), seed=3), device=cuda)
+    images = (np.random.RandomState(8).rand(2, 96, 130, 3) * 255).astype(np.uint8)
+    before = conv3x3.launches
+    blobs = gpu.compress_batch(images, coder="device")
+    assert conv3x3.launches == before
+    gpu.decompress_batch(blobs)
+    assert conv3x3.launches == before + 19
+    codec = bmshj2018.Codec(bmshj2018.load_model(CKPT), device=cuda)
+    codec.decompress_batch(codec.compress_batch(images, coder="device"))
+    assert conv3x3.launches == before + 19
 
 
 @pytest.mark.parametrize("coder", ["host", "device"])
