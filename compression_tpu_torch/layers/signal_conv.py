@@ -344,13 +344,17 @@ class _SignalConv(nn.Module):
         k = parameters.rdft_apply(self.weight_rdft, self.rdft_basis, self.support)
         return k.permute(nd + 1, nd, *range(nd))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = signal_conv(
+    def convolve(self, x: torch.Tensor) -> torch.Tensor:
+        """The layer's convolution of ``x``, without its bias and activation."""
+        return signal_conv(
             x, self.kernel(), corr=self.corr, strides_down=self.strides_down,
             strides_up=self.strides_up, padding=self.padding,
             extra_pad_end=self.extra_pad_end,
             channel_separable=self.channel_separable,
         )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.convolve(x)
         if self.bias is not None:
             y = y + self.bias
         if self.activation is not None:

@@ -27,7 +27,7 @@ Where a plain translation would give other numbers:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 from torch import nn
@@ -37,7 +37,6 @@ from compression_tpu_torch.layers.conv3x3_kernel import conv3x3
 from compression_tpu_torch.layers.signal_conv import (
     SignalConv2D,
     conv_nhwc,
-    signal_conv,
     truncated_normal_init,
 )
 from compression_tpu_torch.util.profiling import span
@@ -86,26 +85,68 @@ def _takes_conv3x3(conv: SignalConv2D, x, weight) -> bool:
             and weight.shape[0] % 4 == 0 and not wants_grad)
 
 
-def _conv_norm(conv: SignalConv2D, norm: ChannelNorm, x, residual=None, relu: bool = False):
-    """``norm(conv(x))`` with the convolution's bias, and the ReLU or the
-    residual add after the norm, handed to the norm's one pass: the
-    convolution runs as ``SignalConv2D.forward`` would, without its bias, or
-    on the card as :func:`conv3x3` where :func:`_takes_conv3x3` says so."""
-    if conv.activation is not None:
-        raise ValueError("a convolution before a ChannelNorm has no activation of its own")
+_ENCODER_WIDTHS = (60, 120, 240, 480, 960)
+_UP_WIDTHS = (480, 240, 120, 60)
+
+
+def _generator_conv(conv: SignalConv2D, x):
+    """The dense generator's convolution without its bias: :func:`conv3x3` on
+    the card where :func:`_takes_conv3x3` says so, else ``conv.convolve``."""
     weight = conv.kernel()
     if x.device.type == "cuda" and _takes_conv3x3(conv, x, weight):
         with span("hific/generator_conv"):
-            y = conv3x3(x, weight)
-    else:
-        y = signal_conv(x, weight, corr=conv.corr, strides_down=conv.strides_down,
-                        strides_up=conv.strides_up, padding=conv.padding,
-                        extra_pad_end=conv.extra_pad_end,
-                        channel_separable=conv.channel_separable)
-    # The norm takes contiguous (rows, C) rows: conv3x3 and cuDNN's float32
-    # convolutions leave channels-last memory, which is that already; cuDNN's
-    # float64 ones leave NCHW memory, copied here.
-    return norm(y.contiguous(), bias=conv.bias, residual=residual, relu=relu)
+            return conv3x3(x, weight)
+    return conv.convolve(x)
+
+
+class _Wiring(NamedTuple):
+    """HiFiC's layer order, written once over ``convolve(conv, x)``, a layer's
+    convolution without its bias, and ``each(fn, *parts)``, ``fn`` on each
+    part: the whole tensors (the dense forwards), or each shard on its device
+    with that device's copy of the parameters ``fn`` reads (``model.sharded_*``)."""
+
+    convolve: Callable
+    each: Callable
+
+    def conv_norm(self, conv: SignalConv2D, norm: ChannelNorm, x, residual=None, relu=False):
+        """``norm(conv(x))`` with the convolution's bias, and the ReLU or the
+        residual add after the norm, handed to the norm's one pass."""
+        if conv.activation is not None:
+            raise ValueError("a convolution before a ChannelNorm has no activation of its own")
+        # The norm takes contiguous (rows, C) rows: conv3x3 and cuDNN's float32
+        # convolutions leave channels-last memory, which is that already; cuDNN's
+        # float64 ones leave NCHW memory, copied here.
+        parts = [self.convolve(conv, x)] + ([] if residual is None else [residual])
+        return self.each(lambda t, *r: norm(t.contiguous(), conv.bias, *r, relu=relu), *parts)
+
+    def encode(self, enc: Encoder, x):
+        for i in range(len(_ENCODER_WIDTHS)):
+            x = self.conv_norm(getattr(enc, f"conv{i}"), getattr(enc, f"norm{i}"), x, relu=True)
+        return self.each(lambda t: t + enc.conv_out.bias, self.convolve(enc.conv_out, x))
+
+    def residual(self, block: ResidualBlock, x):
+        h = self.conv_norm(block.conv0, block.norm0, x, relu=True)
+        return self.conv_norm(block.conv1, block.norm1, h, residual=x)
+
+    def generate(self, gen: Generator, y):
+        # y as the encoder or the entropy model left it (NCHW memory in float64).
+        x = self.each(lambda t: gen.norm_in(t.contiguous()), y)
+        x = self.conv_norm(gen.conv_in, gen.norm_head, x)
+        for i in range(gen.num_residual_blocks):
+            x = self.residual(getattr(gen, f"res{i}"), x)
+        for i in range(len(_UP_WIDTHS)):
+            x = self.conv_norm(getattr(gen, f"up{i}"), getattr(gen, f"upnorm{i}"), x, relu=True)
+        return self.each(lambda t: t + gen.conv_out.bias, self.convolve(gen.conv_out, x))
+
+
+def _whole(fn, *parts):
+    return fn(*parts)
+
+
+# The encoder keeps signal_conv: its one convolution that conv3x3 could take,
+# conv_out, stays cuDNN's, and so do the compressed blobs.
+_ENCODER = _Wiring(lambda conv, x: conv.convolve(x), _whole)
+_GENERATOR = _Wiring(_generator_conv, _whole)
 
 
 class ResidualBlock(nn.Module):
@@ -117,12 +158,7 @@ class ResidualBlock(nn.Module):
         self.norm1 = ChannelNorm(filters)
 
     def forward(self, x):
-        h = _conv_norm(self.conv0, self.norm0, x, relu=True)
-        return _conv_norm(self.conv1, self.norm1, h, residual=x)
-
-
-_ENCODER_WIDTHS = (60, 120, 240, 480, 960)
-_UP_WIDTHS = (480, 240, 120, 60)
+        return _GENERATOR.residual(self, x)
 
 
 class Encoder(nn.Module):
@@ -140,9 +176,7 @@ class Encoder(nn.Module):
         self.conv_out = _conv(_ENCODER_WIDTHS[-1], num_latents, 3, gen)
 
     def forward(self, x):
-        for i in range(len(_ENCODER_WIDTHS)):
-            x = _conv_norm(getattr(self, f"conv{i}"), getattr(self, f"norm{i}"), x, relu=True)
-        return self.conv_out(x)
+        return _ENCODER.encode(self, x)
 
 
 class Generator(nn.Module):
@@ -164,13 +198,7 @@ class Generator(nn.Module):
         self.conv_out = _conv(_UP_WIDTHS[-1], 3, 7, gen)
 
     def forward(self, y):
-        # y as the encoder or the entropy model left it (NCHW memory in float64).
-        x = _conv_norm(self.conv_in, self.norm_head, self.norm_in(y.contiguous()))
-        for i in range(self.num_residual_blocks):
-            x = getattr(self, f"res{i}")(x)
-        for i in range(len(_UP_WIDTHS)):
-            x = _conv_norm(getattr(self, f"up{i}"), getattr(self, f"upnorm{i}"), x, relu=True)
-        return self.conv_out(x)
+        return _GENERATOR.generate(self, y)
 
 
 def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:

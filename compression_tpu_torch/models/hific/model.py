@@ -55,9 +55,9 @@ from compression_tpu_torch.parallel.data_parallel import (
     shard_batch,
 )
 from compression_tpu_torch.parallel.spatial import (
+    _halo_conv,
     as_shards,
     map_shards,
-    sharded_conv,
     sharded_transform_apply,
 )
 
@@ -436,46 +436,28 @@ def decompress(model: HificModel, data: bytes, device="cuda") -> np.ndarray:
 
 
 # -- spatially sharded transforms (images too large for one device) -----------
-#
-# The encoder and the generator are wired by hand (ChannelNorm, the
-# residual trunk). ChannelNorm normalizes each position over its channels,
-# so it runs on each shard, made contiguous rows for its kernel (a shard cut
-# from a batch, or a float64 convolution's NCHW memory, is not); only the
-# convolutions exchange halos.
+
+
+def _sharded(net: nn.Module, mesh, axis) -> archs._Wiring:
+    """``archs``' wiring H-sharded: the halo-exchanging convolution without
+    its bias (never ``conv3x3``, whose zero padding would stand in for a
+    shard's halo rows), and ``net``'s steps on each shard's device."""
+    return archs._Wiring(lambda conv, x: _halo_conv(conv, x, mesh, axis),
+                         Replicas(net, mesh.devices).map)
 
 
 def sharded_encode(model: HificModel, x, mesh, axis="data"):
     """H-sharded encoder: image in [0, 1] (H divisible by ``mesh size *
     16``) or its shards -> y's shards."""
     enc = model.encoder
-    reps = Replicas(enc, mesh.devices)
-    for i in range(5):
-        x = sharded_conv(getattr(enc, f"conv{i}"), x, mesh, axis)
-        norm = getattr(enc, f"norm{i}")
-        x = reps.map(lambda t, norm=norm: torch.relu(norm(t.contiguous())), x)
-    return sharded_conv(enc.conv_out, x, mesh, axis)
+    return _sharded(enc, mesh, axis).encode(enc, as_shards(x, mesh, axis))
 
 
 def sharded_generate(model: HificModel, y_hat, mesh, axis="data"):
     """H-sharded generator: y_hat (latent H divisible by the mesh size) or
     its shards -> the image's shards (16x up-sampled floats)."""
     gen = model.generator
-    reps = Replicas(gen, mesh.devices)
-    x = reps.map(lambda t: gen.norm_in(t.contiguous()), as_shards(y_hat, mesh, axis))
-    x = reps.map(lambda t: gen.norm_head(t.contiguous()),
-                 sharded_conv(gen.conv_in, x, mesh, axis))
-    for i in range(gen.num_residual_blocks):
-        res = getattr(gen, f"res{i}")
-        h = sharded_conv(res.conv0, x, mesh, axis)
-        h = reps.map(lambda t, res=res: torch.relu(res.norm0(t.contiguous())), h)
-        h = reps.map(lambda t, res=res: res.norm1(t.contiguous()),
-                     sharded_conv(res.conv1, h, mesh, axis))
-        x = map_shards(torch.add, x, h)
-    for i in range(4):
-        x = sharded_conv(getattr(gen, f"up{i}"), x, mesh, axis)
-        norm = getattr(gen, f"upnorm{i}")
-        x = reps.map(lambda t, norm=norm: torch.relu(norm(t.contiguous())), x)
-    return sharded_conv(gen.conv_out, x, mesh, axis)
+    return _sharded(gen, mesh, axis).generate(gen, as_shards(y_hat, mesh, axis))
 
 
 def sharded_encode_latents(model: HificModel, x, mesh, axis="data"):

@@ -189,9 +189,9 @@ class Replicas:
         copies = self._copies[device]
         return [copies[name] for name in self.names]
 
-    def map(self, fn: Callable, shards: Sequence[torch.Tensor]) -> list:
-        """``fn(shard)`` for each shard, on its device's tensors."""
-        return [self.call(s.device, fn, s) for s in shards]
+    def map(self, fn: Callable, *shards: Sequence[torch.Tensor]) -> list:
+        """``fn`` on each mesh position's shards (one of each list), on its device's tensors."""
+        return [self.call(parts[0].device, fn, *parts) for parts in zip(*shards)]
 
     def load(self, device, tensors: dict) -> None:
         """Copies ``{name: tensor}`` into the tensors on ``device``."""

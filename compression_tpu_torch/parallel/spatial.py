@@ -175,10 +175,11 @@ def sharded_signal_conv2d_up(x, kernel: torch.Tensor, mesh: Mesh, axis: str = "d
     return out
 
 
-def sharded_conv(conv: SignalConv2D, x, mesh: Mesh, axis: str = "data") -> Shards:
-    """A ``SignalConv2D`` module (its kernel, bias and activation) with H
-    sharded: a down-convolution through :func:`sharded_signal_conv2d`, an
-    up-convolution through :func:`sharded_signal_conv2d_up`."""
+def _halo_conv(conv: SignalConv2D, x, mesh: Mesh, axis: str = "data") -> Shards:
+    """A ``SignalConv2D`` module's convolution, without its bias and
+    activation, with H sharded: a down-convolution through
+    :func:`sharded_signal_conv2d`, an up-convolution through
+    :func:`sharded_signal_conv2d_up`."""
     if (conv.padding != "same_zeros" or conv.channel_separable
             or not conv.extra_pad_end):
         raise ValueError("sharded convolutions take same_zeros padding, a dense "
@@ -187,11 +188,14 @@ def sharded_conv(conv: SignalConv2D, x, mesh: Mesh, axis: str = "data") -> Shard
     if any(s > 1 for s in conv.strides_up):
         if any(s > 1 for s in conv.strides_down):
             raise ValueError("a sharded convolution either up- or down-samples")
-        shards = sharded_signal_conv2d_up(x, kernel, mesh, axis, conv.corr,
-                                          conv.strides_up)
-    else:
-        shards = sharded_signal_conv2d(x, kernel, mesh, axis, conv.corr,
-                                       conv.strides_down)
+        return sharded_signal_conv2d_up(x, kernel, mesh, axis, conv.corr, conv.strides_up)
+    return sharded_signal_conv2d(x, kernel, mesh, axis, conv.corr, conv.strides_down)
+
+
+def sharded_conv(conv: SignalConv2D, x, mesh: Mesh, axis: str = "data") -> Shards:
+    """A ``SignalConv2D`` module (its kernel, bias and activation) with H
+    sharded: :func:`_halo_conv`, then the bias and the activation."""
+    shards = _halo_conv(conv, x, mesh, axis)
     if conv.bias is not None:
         shards = [s + conv.bias.to(s.device) for s in shards]
     if conv.activation is not None:

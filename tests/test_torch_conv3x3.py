@@ -15,7 +15,7 @@ import torch
 from benchmark import harness, trace
 from compression_tpu_torch.layers import conv3x3_kernel
 from compression_tpu_torch.layers.conv3x3_kernel import conv3x3, conv3x3_reference, split_tf32
-from compression_tpu_torch.layers.signal_conv import signal_conv
+from compression_tpu_torch.layers.signal_conv import SignalConv2D, signal_conv
 from compression_tpu_torch.models.hific import archs
 
 # The profiler's name of the kernel, as ``torch.profiler`` gives it on the card.
@@ -137,15 +137,21 @@ def test_the_kernel_takes_no_other_convolution():
 
 
 def test_the_cpu_path_keeps_signal_conv(monkeypatch):
-    """On the CPU ``_conv_norm`` never calls the kernel's wrapper, so the CPU
-    numbers (and the JAX parity tests) are the ones signal_conv gives."""
+    """On the CPU the generator never calls the kernel's wrapper: each of its
+    convolutions runs ``convolve`` (signal_conv), so the CPU numbers (and the
+    JAX parity tests) are the ones signal_conv gives."""
     g = _generator()
-    called = []
+    called, convolved = [], []
     monkeypatch.setattr(archs, "conv3x3", lambda *a: called.append(a))
+    convolve = SignalConv2D.convolve
+    monkeypatch.setattr(SignalConv2D, "convolve",
+                        lambda conv, x: convolved.append(conv) or convolve(conv, x))
     before = conv3x3.launches
     with torch.no_grad():
         g(torch.randn(1, 2, 3, 220))
     assert called == [] and conv3x3.launches == before
+    assert convolved == [g.conv_in, g.res0.conv0, g.res0.conv1, g.up0, g.up1, g.up2, g.up3,
+                         g.conv_out]
 
 
 def test_the_profiler_classes_the_kernel_as_a_forward_convolution():

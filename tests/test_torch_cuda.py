@@ -1223,24 +1223,29 @@ def test_channel_norm_kernel_in_float64_matches_twin(cuda, c, flags):
 
 def test_hific_float32_norms_take_rows_as_the_convolutions_leave_them(cuda, monkeypatch):
     """Over a float32 hific-mi round trip on the card every convolution
-    before a norm (through ``signal_conv`` or the 3x3 kernel), and the
-    latents before ``norm_in``, leave contiguous rows, so the networks'
+    before a norm (through ``SignalConv2D.convolve`` or the 3x3 kernel), and
+    the latents before ``norm_in``, leave contiguous rows, so the networks'
     ``.contiguous()`` before a norm copies nothing there (cuDNN's float64
     convolutions leave NCHW memory, which it copies)."""
+    from compression_tpu_torch.layers.signal_conv import SignalConv2D
     from compression_tpu_torch.models.hific import archs as hific_archs
 
     seen = []
+    gpu = hific.Codec(hific.HificModel(hific.get_config("hific-mi"), seed=3), device=cuda)
+    before_norm = [conv for net in (gpu.model.encoder, gpu.model.generator)
+                   for name, conv in net.named_modules()
+                   if isinstance(conv, SignalConv2D) and name != "conv_out"]
 
-    def spy(conv):
+    def spy(conv, only=None):
         def run(*args, **kwargs):
             y = conv(*args, **kwargs)
-            seen.append(y.is_contiguous())
+            if only is None or any(args[0] is c for c in only):
+                seen.append(y.is_contiguous())
             return y
         return run
 
-    monkeypatch.setattr(hific_archs, "signal_conv", spy(hific_archs.signal_conv))
+    monkeypatch.setattr(SignalConv2D, "convolve", spy(SignalConv2D.convolve, before_norm))
     monkeypatch.setattr(hific_archs, "conv3x3", spy(hific_archs.conv3x3))
-    gpu = hific.Codec(hific.HificModel(hific.get_config("hific-mi"), seed=3), device=cuda)
     gpu.model.generator.register_forward_pre_hook(
         lambda module, args: seen.append(args[0].is_contiguous()))
     images = (np.random.RandomState(9).rand(2, 96, 130, 3) * 255).astype(np.uint8)

@@ -17,7 +17,9 @@ from compression_tpu_torch.layers.channel_norm_kernel import (
     fused_channel_norm,
     fused_channel_norm_reference,
 )
+from compression_tpu_torch.models import hific
 from compression_tpu_torch.models.hific import archs
+from compression_tpu_torch.parallel.data_parallel import Mesh
 
 WIDTHS = (60, 120, 220, 240, 480, 960, 37)  # HiFiC's widths and an odd one
 COMBOS = list(itertools.product((False, True), repeat=3))  # bias, relu, residual
@@ -195,20 +197,36 @@ def _count_norm_calls(monkeypatch):
     return calls
 
 
-def test_networks_hand_the_norm_its_bias_relu_and_residual(monkeypatch):
+@pytest.mark.parametrize("path", ["dense", "sharded"])
+def test_networks_hand_the_norm_its_bias_relu_and_residual(monkeypatch, path):
     """The encoder's 5 norms take their convolution's bias and the ReLU;
     the generator's ``norm_in`` nothing, ``norm_head`` its bias, each
     block's ``norm0`` bias and ReLU and ``norm1`` bias and the residual,
-    the up-path's norms bias and ReLU (5 + 2 + 2 a block + 4 calls)."""
+    the up-path's norms bias and ReLU (5 + 2 + 2 a block + 4 calls). The
+    H-sharded networks do the same once a shard (two shards: one on the
+    CPU, one on a copy of the model on ``cpu:0``)."""
     calls = _count_norm_calls(monkeypatch)
-    gen = torch.Generator().manual_seed(0)
-    enc, g = archs.Encoder(8, gen), archs.Generator(8, 2, gen)
+    model = hific.HificModel(hific.HificConfig(
+        name="small", target_rate=0.3, num_latents=8, num_hyperlatents=8,
+        num_residual_blocks=2), seed=0)
+    if path == "dense":
+        shards, encode, generate = 1, model.encoder, model.generator
+    else:
+        mesh = Mesh(("cpu", torch.device("cpu", 0)))
+        shards = 2
+        encode = lambda x: hific.sharded_encode(model, x, mesh)  # noqa: E731
+        generate = lambda y: hific.sharded_generate(model, y, mesh)  # noqa: E731
+
+    def per_shard(expected):
+        return [call for call in expected for _ in range(shards)]
+
     with torch.no_grad():
-        enc(torch.rand(1, 32, 32, 3))
-        assert calls == [(c, True, True, False, torch.float32) for c in (60, 120, 240, 480, 960)]
+        encode(torch.rand(1, 32, 32, 3))
+        assert calls == per_shard(
+            [(c, True, True, False, torch.float32) for c in (60, 120, 240, 480, 960)])
         calls.clear()
-        g(torch.randn(1, 2, 2, 8))
-    assert [call[:4] for call in calls] == (
+        generate(torch.randn(1, 2, 2, 8))
+    assert [call[:4] for call in calls] == per_shard(
         [(8, False, False, False), (960, True, False, False)]
         + [(960, True, True, False), (960, True, False, True)] * 2
         + [(c, True, True, False) for c in (480, 240, 120, 60)])
