@@ -160,7 +160,16 @@ of a checkout. Phases, each fatal on failure:
     beside its 3xTF32 bound (495 TFLOP/s), the float32 CUDA-core bound (67
     TFLOP/s), the twin and ``F.conv2d`` on NCHW tensors (the yardstick
     only); its launches (0 a compressed and 19 a decoded HiFiC batch) held
-    on every path of the run, none off HiFiC's;
+    on every path of the run, none off HiFiC's; i. the stride-2 3x3
+    up-convolution kernel (``csrc/conv_up3x3.cu``) at the generator's
+    up0-up3 calls of a decoded batch, its largest error against float64 no
+    larger than cuDNN float32's through ``signal_conv`` (its phase
+    convolution and depth-to-space copy, which these calls ran before),
+    timed beside its 3xTF32 and float32 bounds, the twin, that
+    ``signal_conv`` call and ``F.conv_transpose2d`` on NCHW tensors (the
+    yardstick only); its launches (0 a compressed and 4 a decoded HiFiC
+    batch) held on every path of the run, on those where the 3x3 kernel
+    launches and no others;
 14. the tfci CLI (``compression_tpu_torch.cli.tfci``) in a model directory
     of its own that holds ckpt/bmshj2018.msgpack as
     bmshj2018-hyperprior.msgpack, on a structured 768x512 PNG written by the
@@ -429,7 +438,8 @@ def phase_build() -> None:
 
     with cf.ThreadPoolExecutor(4) as pool:
         nvcc = {src: pool.submit(timed, cuda_build.build, src)
-                for src in ("gdn.cu", "rans.cu", "channel_norm.cu", "conv3x3.cu")}
+                for src in ("gdn.cu", "rans.cu", "channel_norm.cu", "conv3x3.cu",
+                            "conv_up3x3.cu")}
         gxx = pool.submit(timed, binding.get_lib)
         log("build: " + ", ".join(f"nvcc {src} {fut.result():.1f} s"
                                   for src, fut in nvcc.items())
@@ -443,11 +453,15 @@ def phase_build() -> None:
         "memory a CTA (gamma slice hi+lo, two x stages)")
     for line in check_tensor_core_sass(cuda_build.sass("gdn.cu")):
         log(f"  sass gdn.cu {line}")
-    conv_sass = cuda_build.sass("conv3x3.cu")
-    hgmma = len(re.findall(r"\bHGMMA\b", conv_sass))
-    if not hgmma:
-        raise AssertionError("sass: conv3x3.cu's kernel has no HGMMA")
-    log(f"  sass conv3x3.cu: {hgmma} HGMMA")
+    for src in ("conv3x3.cu", "conv_up3x3.cu"):
+        hgmma = len(re.findall(r"\bHGMMA\b", cuda_build.sass(src)))
+        if not hgmma:
+            raise AssertionError(f"sass: {src}'s kernels have no HGMMA")
+        # C7514/C7512: ptxas serialized the wgmma products. A library an
+        # earlier process built leaves no log in this one.
+        serialized = (re.findall(r"C751[24]", cuda_build.build_logs[src])
+                      if src in cuda_build.build_logs else "not read (built by an earlier process)")
+        log(f"  sass {src}: {hgmma} HGMMA; ptxas serialization warnings {serialized or 'none'}")
 
 
 # The tensor-core instruction each GDN kernel must compile to, by the
@@ -892,12 +906,12 @@ def num_streams(codec) -> int:
 
 def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
                 cpu_check: bool = True, gdn: int = 6, gdn_general: int = 0,
-                norm: tuple = (0, 0), conv: tuple = (0, 0)) -> tuple:
+                norm: tuple = (0, 0), conv: tuple = (0, 0), up: tuple = (0, 0)) -> tuple:
     """A hyperprior codec's host-coded path: launches over exactly
     compress_batch + decompress_batch (``gdn`` for K1, ``gdn_general`` for
-    the general GDN kernel, ``norm`` for the fused ChannelNorm's and
-    ``conv`` for the 3x3 convolution kernel's in the compress and in the
-    decompress), byte-identical
+    the general GDN kernel; ``norm`` for the fused ChannelNorm's, ``conv``
+    for the 3x3 convolution kernel's and ``up`` for the up-convolution
+    kernel's in the compress and in the decompress), byte-identical
     re-compression, batch-1 decode equal to the batch-8 decode, PSNR and
     bpp (PSNR held to ``min_psnr`` where the weights are trained ones), and
     with ``cpu_check`` a small input against the CPU path of ``module``.
@@ -905,33 +919,27 @@ def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
     from compression_tpu_torch.models.device_coding import num_fields
 
     from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
-    from compression_tpu_torch.layers.conv3x3_kernel import conv3x3
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.util.image import psnr_np
 
     codec.compress_batch(images[:1])  # warm-up: cuDNN handles, kernel load
 
     # The path's run: the counts cover exactly compress + decompress.
-    fused_gdn.launches = fused_gdn_general.launches = fused_channel_norm.launches = 0
-    conv3x3.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     blobs = codec.compress_batch(images)
     t1 = time.perf_counter()
-    norm_c, conv_c = fused_channel_norm.launches, conv3x3.launches
+    compressing = read_launches()
     out = codec.decompress_batch(blobs)
     t2 = time.perf_counter()
-    launches = {"gdn": fused_gdn.launches, "gdn_general": fused_gdn_general.launches,
-                "channel_norm": fused_channel_norm.launches, "conv3x3": conv3x3.launches}
+    launches = read_launches()
     log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress {1e3 * (t1 - t0):.1f} ms, "
-        f"decompress {1e3 * (t2 - t1):.1f} ms; K1 launches {launches['gdn']}, general "
-        f"GDN kernel {launches['gdn_general']}, ChannelNorm's kernel {norm_c} + "
-        f"{launches['channel_norm'] - norm_c}, the 3x3 convolution kernel {conv_c} + "
-        f"{launches['conv3x3'] - conv_c}")
-    if (launches != {"gdn": gdn, "gdn_general": gdn_general, "channel_norm": sum(norm),
-                     "conv3x3": sum(conv)} or (norm_c, conv_c) != (norm[0], conv[0])):
+        f"decompress {1e3 * (t2 - t1):.1f} ms; launches {launches} ({compressing} compressing)")
+    if (launches != launches_of(gdn=gdn, general=gdn_general, norm=sum(norm), conv=sum(conv),
+                                up=sum(up))
+            or [compressing[k] for k in HIFIC_KERNELS] != [norm[0], conv[0], up[0]]):
         raise AssertionError(f"expected {gdn} K1, {gdn_general} general GDN, {norm} "
-                             f"ChannelNorm and {conv} 3x3 convolution launches, saw "
-                             f"{launches} ({norm_c}, {conv_c} compressing)")
+                             f"ChannelNorm, {conv} 3x3 convolution and {up} up-convolution "
+                             f"launches, saw {launches} ({compressing} compressing)")
     if out.shape != images.shape or out.dtype != np.uint8:
         raise AssertionError(f"bad output {out.shape} {out.dtype}")
     fields = num_streams(codec) + 3
@@ -957,44 +965,39 @@ def phase_codec(codec, images, module, label: str = "codec", min_psnr=25.0,
 
 def phase_codec_device(codec, images, host_blobs, host_out,
                        label: str = "codec (device coder)", gdn: int = 6,
-                       norm: tuple = (0, 0), conv: tuple = (0, 0)) -> dict:
+                       norm: tuple = (0, 0), conv: tuple = (0, 0), up: tuple = (0, 0)) -> dict:
     """A device-coded path: launches over exactly compress_batch +
-    decompress_batch (K3 2 and K2 1 a y stream, K1 ``gdn``, the fused
-    ChannelNorm ``norm`` and the 3x3 convolution kernel ``conv`` in the
-    compress and in the decompress), and its outputs
+    decompress_batch (K3 2 and K2 1 a y stream, K1 ``gdn``; the fused
+    ChannelNorm ``norm``, the 3x3 convolution kernel ``conv`` and the
+    up-convolution kernel ``up`` in the compress and in the decompress), and
+    its outputs
     against the host coder's; each y stream within 1.1x the host coder's
     string for it plus the lane states. The general GDN kernel must not run."""
     from compression_tpu_torch.codec import rans
-    from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
-    from compression_tpu_torch.layers.conv3x3_kernel import conv3x3
-    from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
     from compression_tpu_torch.util import PackedTensors
     from compression_tpu_torch.util.image import psnr_np
 
     codec.decompress_batch(codec.compress_batch(images[:1], coder="device"))  # warm-up
-    rans.rans_encode.launches = rans.rans_decode.launches = fused_gdn.launches = 0
-    fused_gdn_general.launches = fused_channel_norm.launches = conv3x3.launches = 0
+    reset_launches()
     rans.rans_decode.variant_launches.update({"on_chip": 0, "global": 0})
     t0 = time.perf_counter()
     blobs = codec.compress_batch(images, coder="device")
     t1 = time.perf_counter()
-    norm_c, conv_c = fused_channel_norm.launches, conv3x3.launches
+    compressing = read_launches()
     out = codec.decompress_batch(blobs)
     t2 = time.perf_counter()
-    launches = {"rans_encode": rans.rans_encode.launches,
-                "rans_decode": rans.rans_decode.launches, "gdn": fused_gdn.launches,
-                "gdn_general": fused_gdn_general.launches,
-                "channel_norm": fused_channel_norm.launches, "conv3x3": conv3x3.launches}
+    launches = read_launches()
     log(f"{label}: batch {BATCH} {HEIGHT}x{WIDTH}: compress "
         f"{1e3 * (t1 - t0):.1f} ms, decompress {1e3 * (t2 - t1):.1f} ms; launches {launches} "
-        f"(ChannelNorm's kernel {norm_c}, the 3x3 convolution kernel {conv_c} compressing)")
+        f"({compressing} compressing)")
     S = num_streams(codec)
-    if launches != {"rans_encode": 2 * S, "rans_decode": S, "gdn": gdn, "gdn_general": 0,
-                    "channel_norm": sum(norm), "conv3x3": sum(conv)} or (
-                        norm_c, conv_c) != (norm[0], conv[0]):
+    if (launches != launches_of(gdn=gdn, enc=2 * S, dec=S, norm=sum(norm), conv=sum(conv),
+                                up=sum(up))
+            or [compressing[k] for k in HIFIC_KERNELS] != [norm[0], conv[0], up[0]]):
         raise AssertionError(f"expected K3 {2 * S} (fields, lanes a stream), K2 {S}, "
-                             f"K1 {gdn}, ChannelNorm {norm}, 3x3 convolution {conv} launches, "
-                             f"saw {launches} ({norm_c}, {conv_c} compressing)")
+                             f"K1 {gdn}, ChannelNorm {norm}, 3x3 convolution {conv}, "
+                             f"up-convolution {up} launches, saw {launches} ({compressing} "
+                             "compressing)")
     variants = dict(rans.rans_decode.variant_launches)
     if variants != {"on_chip": S, "global": 0}:
         raise AssertionError(f"expected K2's on-chip variant {S} times, saw {variants}")
@@ -2131,7 +2134,8 @@ def count_hific_step_launches(cfg) -> dict:
     norm = sum(hific_norm_launches(cfg))  # one forward of the encoder and the generator
     if launches != launches_of(norm=norm):
         raise AssertionError(f"13b: expected K1 0, K3 0, K2 0, general GDN 0, ChannelNorm "
-                             f"{norm}, 3x3 convolution 0 launches, saw {launches}")
+                             f"{norm}, 3x3 convolution 0, up-convolution 0 launches, saw "
+                             f"{launches}")
     prof = profile_device(f"13b 3 joint steps of {TRAIN_BATCH}x{TRAIN_PATCH}x{TRAIN_PATCH}",
                           lambda: [step(x, gen) for _ in range(3)], steps=3, top=8)
     return launches, prof
@@ -2316,72 +2320,132 @@ def conv3x3_bounds_ms(shape) -> dict:
             "fp32_bound_ms": 1e3 * flops / PEAK_FP32_FLOPS}
 
 
+def time_conv_kernel(tag: str, what: str, card: str, reps: int, kernel, twin, calls: list,
+                     yardsticks: dict, held_to: str, slack: float) -> dict:
+    """13h and 13i: a convolution kernel at each of ``calls`` (``(label, (N,
+    H, W, cin, cout), calls a batch)``, a decoded batch's): its largest
+    error against ``twin`` in float64 within ``slack`` times that of
+    ``held_to`` (``"plain"``, the twin in float32, or a yardstick's key),
+    and its time beside its bounds (:func:`conv3x3_bounds_ms`), the twin's
+    and each yardstick's (``{key: (name, make)}``, ``make(x, weight)``
+    giving the call and what turns its output into NHWC), each replayed from
+    a CUDA graph (:func:`graph_ms`), in turns (twin, kernel, yardsticks,
+    kernel, yardsticks reversed, twin); each call's time counted as often as
+    a batch makes it."""
+
+    def key(k, name):
+        return f"{k}_{name}" if k else name
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    names = {"": "kernel", "plain": "twin", **{k: v[0] for k, v in yardsticks.items()}}
+    total = dict.fromkeys([key(k, "ms") for k in names] + ["bound_ms", "fp32_bound_ms"], 0.0)
+    rows_out = []
+    for label, shape, count in calls:
+        n, h, w, cin, cout = shape
+        x = torch.randn(n, h, w, cin, device="cuda", generator=gen)
+        weight = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / (9 * cin) ** 0.5
+        fns = {"": (lambda: kernel(x, weight), None), "plain": (lambda: twin(x, weight), None),
+               **{k: make(x, weight) for k, (_, make) in yardsticks.items()}}
+        with torch.inference_mode():
+            want = twin(x.double(), weight.double())
+            errs = {}
+            for k, (fn, to_nhwc) in fns.items():
+                out = fn() if to_nhwc is None else to_nhwc(fn())
+                errs[k] = (out.double() - want).abs().max().item()
+                del out
+            del want
+            if errs[""] > slack * errs[held_to]:
+                raise AssertionError(f"{tag} {label}: kernel {errs['']:.3e} from float64, "
+                                     f"{names[held_to]} {errs[held_to]:.3e}")
+            runs = {k: [] for k in fns}
+            for k in ["plain", "", *yardsticks, "", *reversed(yardsticks), "plain"]:
+                runs[k].append(graph_ms(fns[k][0], reps))
+        times = {key(k, "ms"): sum(v) / len(v) for k, v in runs.items()}
+        bounds = conv3x3_bounds_ms(shape)
+        for k, v in {**times, **bounds}.items():
+            total[k] += count * v
+        share = 100 * bounds["bound_ms"] / times["ms"]
+        rows_out.append(dict(label=label, shape=shape, count=count, bound_share=share,
+                             **{key(k, "max_abs_err"): e for k, e in errs.items()}, **bounds,
+                             **times))
+        log(f"  {tag} {label} {'x'.join(map(str, shape))} x{count}: kernel {times['ms']:.4f} ms, "
+            f"{share:.1f}% of its 3xTF32 bound {bounds['bound_ms']:.4f} ms (float32 CUDA-core "
+            f"bound {bounds['fp32_bound_ms']:.4f} ms); "
+            + "; ".join(f"{names[k]} {times[key(k, 'ms')]:.4f} ms" for k in names if k)
+            + "; max_abs_err " + ", ".join(f"{names[k]} {e:.3e}" for k, e in errs.items()))
+        del x, weight, fns
+    log(f"{tag} {what} of a decoded batch of {BATCH} ({card}): kernel {total['ms']:.4f} ms "
+        f"({total['ms'] / BATCH:.4f} an image), bound {total['bound_ms']:.4f} ms (3xTF32), "
+        f"{100 * total['bound_ms'] / total['ms']:.1f}% of it; float32 CUDA-core bound "
+        f"{total['fp32_bound_ms']:.4f} ms; "
+        + "; ".join(f"{names[k]} {total[key(k, 'ms')]:.4f} ms" for k in names if k))
+    return dict(calls=rows_out, **total)
+
+
 def time_conv3x3(cfg, card: str, reps: int) -> dict:
-    """13h: the 3x3 convolution kernel at each call of a decoded batch: its
-    largest error against float64 within 2x of its twin's (cuDNN in float32,
-    TF32 off, through the channels-last view, as the port ran these
-    convolutions before), and its time beside its bounds, the twin's and
-    ``F.conv2d``'s on NCHW tensors (cuDNN in its own layout, the yardstick),
-    each replayed from a CUDA graph (:func:`graph_ms`), in turns (twin,
-    kernel, yardstick, kernel, twin); each call's time counted as often as a
-    batch makes it."""
+    """13h: the 3x3 convolution kernel at each call of a decoded batch
+    (:func:`time_conv_kernel`): its largest error against float64 within 2x
+    of its twin's (cuDNN in float32, TF32 off, through the channels-last
+    view, as the port ran these convolutions before), and its time beside
+    ``F.conv2d``'s on NCHW tensors (cuDNN in its own layout, the
+    yardstick)."""
     import torch.nn.functional as F
 
     from compression_tpu_torch.layers.conv3x3_kernel import conv3x3, conv3x3_reference
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, fp32_bound_ms=0.0)
-    rows_out = []
-    for label, shape, count in conv3x3_calls(cfg):
-        n, h, w, cin, cout = shape
-        x = torch.randn(n, h, w, cin, device="cuda", generator=gen)
-        weight = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen) / (9 * cin) ** 0.5
+    def library(x, weight):
         x_nchw = x.permute(0, 3, 1, 2).contiguous()
-        with torch.inference_mode():
-            got = conv3x3(x, weight)
-            want = conv3x3_reference(x.double(), weight.double())
-            err = (got.double() - want).abs().max().item()
-            plain_err = (conv3x3_reference(x, weight).double() - want).abs().max().item()
-            if err > 2 * plain_err:
-                raise AssertionError(f"13h {label}: kernel {err:.3e} from float64, twin "
-                                     f"{plain_err:.3e}")
-            del got, want
-            runs = {"plain_ms": [], "ms": [], "library_ms": []}
-            for key, fn in (("plain_ms", lambda: conv3x3_reference(x, weight)),
-                            ("ms", lambda: conv3x3(x, weight)),
-                            ("library_ms", lambda: F.conv2d(x_nchw, weight, padding=1)),
-                            ("ms", lambda: conv3x3(x, weight)),
-                            ("plain_ms", lambda: conv3x3_reference(x, weight))):
-                runs[key].append(graph_ms(fn, reps))
-        times = {k: sum(v) / len(v) for k, v in runs.items()}
-        bounds = conv3x3_bounds_ms(shape)
-        for k in ("ms", "plain_ms", "library_ms"):
-            total[k] += count * times[k]
-        for k, v in bounds.items():
-            total[k] += count * v
-        share = 100 * bounds["bound_ms"] / times["ms"]
-        rows_out.append(dict(label=label, shape=shape, count=count, bound_share=share,
-                             max_abs_err=err, plain_max_abs_err=plain_err, **bounds, **times))
-        log(f"  13h {label} {'x'.join(map(str, shape))} x{count}: kernel {times['ms']:.4f} ms, "
-            f"{share:.1f}% of its 3xTF32 bound {bounds['bound_ms']:.4f} ms (float32 CUDA-core "
-            f"bound {bounds['fp32_bound_ms']:.4f} ms); twin {times['plain_ms']:.4f} ms; "
-            f"F.conv2d NCHW {times['library_ms']:.4f} ms; max_abs_err {err:.3e} (twin "
-            f"{plain_err:.3e})")
-        del x, x_nchw
-    log(f"13h 3x3 convolutions of a decoded batch of {BATCH} ({card}): kernel "
-        f"{total['ms']:.4f} ms ({total['ms'] / BATCH:.4f} an image), bound "
-        f"{total['bound_ms']:.4f} ms (3xTF32), {100 * total['bound_ms'] / total['ms']:.1f}% of "
-        f"it; float32 CUDA-core bound {total['fp32_bound_ms']:.4f} ms; twin "
-        f"{total['plain_ms']:.4f} ms; F.conv2d NCHW {total['library_ms']:.4f} ms")
-    return dict(calls=rows_out, **total)
+        return lambda: F.conv2d(x_nchw, weight, padding=1), lambda out: out.permute(0, 2, 3, 1)
+
+    return time_conv_kernel("13h", "3x3 convolutions", card, reps, conv3x3, conv3x3_reference,
+                            conv3x3_calls(cfg), {"library": ("F.conv2d NCHW", library)},
+                            held_to="plain", slack=2.0)
+
+
+def conv_up3x3_calls() -> list:
+    """13i: the up-convolution kernel's calls of a decoded batch of BATCH
+    HEIGHTxWIDTH images, as ``(label, (N, H, W, cin, cout), calls a
+    batch)``: the generator's up0-up3, each once a batch."""
+    widths = (960, 480, 240, 120, 60)
+    return [(f"up{i}", (BATCH, HEIGHT // 2 ** (4 - i), WIDTH // 2 ** (4 - i), cin, cout), 1)
+            for i, (cin, cout) in enumerate(zip(widths, widths[1:]))]
+
+
+def time_conv_up3x3(card: str, reps: int) -> dict:
+    """13i: the up-convolution kernel at each call of a decoded batch
+    (:func:`time_conv_kernel`): its largest error against float64 no larger
+    than ``signal_conv``'s (cuDNN's float32 phase convolution, TF32 off, and
+    the depth-to-space copy, as the port ran these calls before), and its
+    time (the 9 products an input pixel, as :func:`conv3x3_bounds_ms` counts
+    them) beside that ``signal_conv`` call's and ``F.conv_transpose2d``'s on
+    NCHW tensors (one PyTorch call of the same function, the yardstick)."""
+    import torch.nn.functional as F
+
+    from compression_tpu_torch.layers.conv_up3x3_kernel import conv_up3x3, conv_up3x3_reference
+    from compression_tpu_torch.layers.signal_conv import signal_conv
+
+    def phase_conv(x, weight):
+        return lambda: signal_conv(x, weight, corr=False, strides_up=2, padding="same_zeros"), None
+
+    def library(x, weight):
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        w_t = weight.transpose(0, 1).contiguous()  # conv_transpose2d's (cin, cout, 3, 3)
+        return (lambda: F.conv_transpose2d(x_nchw, w_t, stride=2, padding=1, output_padding=1),
+                lambda out: out.permute(0, 2, 3, 1))
+
+    return time_conv_kernel("13i", "up-convolutions", card, reps, conv_up3x3,
+                            conv_up3x3_reference, conv_up3x3_calls(),
+                            {"signal_conv": ("signal_conv", phase_conv),
+                             "library": ("F.conv_transpose2d NCHW", library)},
+                            held_to="signal_conv", slack=1.0)
 
 
 def phase_hific(card: str, reps: int, batches: int) -> dict:
     """Phase 13: HiFiC hific-mi at full width: one joint step against the
     CPU, training from the seed and a step's launches, the codec of the
     trained model with both coders, K3 and K2 on its symbols and rows,
-    throughput, a profile by kind, the fused ChannelNorm's kernel and the
-    3x3 convolution kernel."""
+    throughput, a profile by kind, the fused ChannelNorm's kernel, the 3x3
+    convolution kernel and the up-convolution kernel."""
     from compression_tpu_torch.models import hific
     from compression_tpu_torch.util.image import pad_to_multiple_np
 
@@ -2394,12 +2458,12 @@ def phase_hific(card: str, reps: int, batches: int) -> dict:
 
     codec = hific.Codec(model, device=DEVICE)
     images = structured_images()
+    nets = dict(norm=hific_norm_launches(cfg), conv=hific_conv_launches(cfg),
+                up=hific_upconv_launches())
     host_blobs, host_out, host_launches = phase_codec(
-        codec, images, hific, label="13c hific codec", min_psnr=None, gdn=0,
-        norm=hific_norm_launches(cfg), conv=hific_conv_launches(cfg))
+        codec, images, hific, label="13c hific codec", min_psnr=None, gdn=0, **nets)
     launches = phase_codec_device(codec, images, host_blobs, host_out,
-                                  label="13c hific codec (device coder)", gdn=0,
-                                  norm=hific_norm_launches(cfg), conv=hific_conv_launches(cfg))
+                                  label="13c hific codec (device coder)", gdn=0, **nets)
     x = torch.from_numpy(pad_to_multiple_np(images, 64)[0]).to(DEVICE).float() / 255.0
     with torch.no_grad():
         coded = float(codec.model.coded_bpp(x))
@@ -2417,10 +2481,12 @@ def phase_hific(card: str, reps: int, batches: int) -> dict:
         for coder in ("host", "device")}
     norm = time_channel_norm(cfg, card, reps)
     conv = time_conv3x3(cfg, card, reps)
+    upconv = time_conv_up3x3(card, reps)
     return dict(train=train, host_launches=host_launches, launches=launches, rans=rans_k,
                 throughput=rates, profile=profiles, coded_bpp=coded, host_bpp=host_bpp,
                 channel_norm=norm, norm_launches=hific_norm_launches(cfg), conv3x3=conv,
-                conv_launches=hific_conv_launches(cfg))
+                conv_launches=hific_conv_launches(cfg), conv_up3x3=upconv,
+                upconv_launches=hific_upconv_launches())
 
 
 # -- phase 14: the tfci CLI ---------------------------------------------------
@@ -2443,32 +2509,41 @@ CLI_GDN = {"bls2017": 2, "bmshj2018-factorized": 3, "mbt2018": 3,
            "ms2020": 3, "b2018-gdn-128": 2, "hific-lo": 0}
 
 
+# The kernels of HiFiC's networks, which a codec's compress and decompress
+# each launch a count of its own.
+HIFIC_KERNELS = ("channel_norm", "conv3x3", "conv_up3x3")
+
+
 def reset_launches() -> None:
     from compression_tpu_torch.codec import rans
     from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
     from compression_tpu_torch.layers.conv3x3_kernel import conv3x3
+    from compression_tpu_torch.layers.conv_up3x3_kernel import conv_up3x3
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
 
     fused_gdn.launches = rans.rans_encode.launches = rans.rans_decode.launches = 0
     fused_gdn_general.launches = fused_channel_norm.launches = conv3x3.launches = 0
+    conv_up3x3.launches = 0
 
 
 def read_launches() -> dict:
     from compression_tpu_torch.codec import rans
     from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
     from compression_tpu_torch.layers.conv3x3_kernel import conv3x3
+    from compression_tpu_torch.layers.conv_up3x3_kernel import conv_up3x3
     from compression_tpu_torch.layers.gdn_kernel import fused_gdn, fused_gdn_general
 
     return {"gdn": fused_gdn.launches, "rans_encode": rans.rans_encode.launches,
             "rans_decode": rans.rans_decode.launches,
             "gdn_general": fused_gdn_general.launches,
-            "channel_norm": fused_channel_norm.launches, "conv3x3": conv3x3.launches}
+            "channel_norm": fused_channel_norm.launches, "conv3x3": conv3x3.launches,
+            "conv_up3x3": conv_up3x3.launches}
 
 
 def launches_of(gdn: int = 0, enc: int = 0, dec: int = 0, general: int = 0,
-                norm: int = 0, conv: int = 0) -> dict:
+                norm: int = 0, conv: int = 0, up: int = 0) -> dict:
     return {"gdn": gdn, "rans_encode": enc, "rans_decode": dec, "gdn_general": general,
-            "channel_norm": norm, "conv3x3": conv}
+            "channel_norm": norm, "conv3x3": conv, "conv_up3x3": up}
 
 
 def hific_norm_launches(cfg) -> tuple:
@@ -2483,6 +2558,12 @@ def hific_conv_launches(cfg) -> tuple:
     decode of a batch: none encoding (7x7 and stride-2 convolutions); the
     generator's conv_in and two a residual block."""
     return 0, 1 + 2 * cfg.num_residual_blocks
+
+
+def hific_upconv_launches() -> tuple:
+    """The up-convolution kernel's launches of one HiFiC encode and one
+    decode of a batch: none encoding; the generator's up0-up3."""
+    return 0, 4
 
 
 def tfci(argv: list, want=None, device: str = None, label: str = None) -> tuple:
@@ -2595,17 +2676,20 @@ def cli_round_trips(tmp, png, name, coders, extra) -> dict:
                       else (0, 0))
     conv_c, conv_d = (hific_conv_launches(hific.get_config(name)) if name.startswith("hific")
                       else (0, 0))
+    up_c, up_d = hific_upconv_launches() if name.startswith("hific") else (0, 0)
     for coder in coders:
         dev = coder == "device"
         tfci_file, out_png = str(tmp / f"{name}_{coder}.tfci"), str(tmp / f"{name}_{coder}.png")
         flag = ["--device-coder"] if dev else []
         launches[f"compress ({coder})"] = tfci(
             ["compress", name, png, tfci_file, *extra, *flag],
-            want=launches_of(gdn, 2 * streams if dev else 0, norm=norm_c, conv=conv_c))[1]
+            want=launches_of(gdn, 2 * streams if dev else 0, norm=norm_c, conv=conv_c,
+                             up=up_c))[1]
         launches[f"decompress ({coder})"] = tfci(
             ["decompress", tfci_file, out_png, *(["--allow-random"] if "--allow-random" in extra
                                                  else [])],
-            want=launches_of(gdn, 0, streams if dev else 0, norm=norm_d, conv=conv_d))[1]
+            want=launches_of(gdn, 0, streams if dev else 0, norm=norm_d, conv=conv_d,
+                             up=up_d))[1]
         decoded[coder] = read_png(out_png)
         if decoded[coder].shape != (HEIGHT, WIDTH, 3):
             raise AssertionError(f"{name}: decoded shape {decoded[coder].shape}")
@@ -4058,6 +4142,16 @@ def main() -> int:
     if unread or amiss:
         raise AssertionError(f"the 3x3 convolution kernel's count was not read on {unread}, "
                              f"or it ran off HiFiC's paths: {amiss}")
+    # The up-convolution kernel: read on every path, and launched 4 times a
+    # decoded batch where the 3x3 kernel is (HiFiC's dense generator on the
+    # card) and on no other path.
+    unread = [path for path, counts in every.items() if "conv_up3x3" not in counts]
+    amiss = {path: (counts["conv_up3x3"], counts["conv3x3"]) for path, counts in every.items()
+             if "conv_up3x3" in counts and (counts["conv_up3x3"] % 4 or
+                                            bool(counts["conv_up3x3"]) != bool(counts["conv3x3"]))}
+    if unread or amiss:
+        raise AssertionError(f"the up-convolution kernel's count was not read on {unread}, or "
+                             f"it ran apart from the 3x3 kernel's: {amiss}")
 
     kernels = [{
         "name": "gdn",
@@ -4117,6 +4211,22 @@ def main() -> int:
         "bound_by": "3xTF32 operations",
         "train_launches": hi["train"]["launches"]["conv3x3"],
         "paths": {path: counts["conv3x3"] for path, counts in every.items()},
+    })
+    upconv = hi["conv_up3x3"]
+    kernels.append({
+        "name": "conv_up3x3",
+        "route": "cuda",
+        "source": "compression_tpu_torch/csrc/conv_up3x3.cu",
+        "replaces": None,  # the JAX package leaves its convolutions to XLA
+        "launches": hi["launches"]["conv_up3x3"],  # HiFiC's device-coded round trip
+        "per_batch": dict(zip(("compress", "decompress"), hi["upconv_launches"])),
+        **{k: max(row[k] for row in upconv["calls"])
+           for k in ("max_abs_err", "plain_max_abs_err", "signal_conv_max_abs_err")},
+        **{k: upconv[k] for k in ("ms", "plain_ms", "signal_conv_ms", "library_ms", "bound_ms",
+                                  "fp32_bound_ms")},
+        "bound_by": "3xTF32 operations",
+        "train_launches": hi["train"]["launches"]["conv_up3x3"],
+        "paths": {path: counts["conv_up3x3"] for path, counts in every.items()},
     })
     for name, replaces in (("rans_encode", "compression_tpu/codec/rans.py:178"),
                            ("rans_decode", "compression_tpu/codec/rans.py:257")):

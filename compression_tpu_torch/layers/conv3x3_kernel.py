@@ -95,56 +95,75 @@ def build() -> pathlib.Path:
     return cuda_build.build(_SOURCE)
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    lib.tpc_conv3x3_forward.restype = ctypes.c_int
-    lib.tpc_conv3x3_forward.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.tpc_conv3x3_error_string.restype = ctypes.c_char_p
-    lib.tpc_conv3x3_error_string.argtypes = [ctypes.c_int]
+def _declarer(name: str):
+    """The ctypes declarations of ``csrc/<name>.cu``'s C interface, which
+    the 3x3 and the up-convolution kernels share: ``tpc_<name>_forward(x,
+    w_hi, w_lo, out, n, h, w, cin, cout, stream)`` and
+    ``tpc_<name>_error_string(code)``."""
+    def declare(lib: ctypes.CDLL) -> None:
+        forward = getattr(lib, f"tpc_{name}_forward")
+        forward.restype = ctypes.c_int
+        forward.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        error_string = getattr(lib, f"tpc_{name}_error_string")
+        error_string.restype = ctypes.c_char_p
+        error_string.argtypes = [ctypes.c_int]
+    return declare
 
 
-def _check_inputs(x: torch.Tensor, weight: torch.Tensor) -> None:
-    """What the kernel takes: x ``(N, H, W, cin)`` and weight ``(cout, cin,
-    3, 3)``, both float32 on one device, x contiguous and 16-byte aligned,
-    cin and cout multiples of 4 (rows of 16 bytes, as TMA reads them)."""
+def _check_inputs(x: torch.Tensor, weight: torch.Tensor, name: str = "conv3x3") -> None:
+    """What the kernel ``name`` takes: x ``(N, H, W, cin)`` and weight
+    ``(cout, cin, 3, 3)``, both float32 on one device, x contiguous and
+    16-byte aligned, cin and cout multiples of 4 (rows of 16 bytes, as TMA
+    reads them)."""
     if x.dtype != torch.float32 or weight.dtype != torch.float32:
-        raise TypeError(f"conv3x3: x is {x.dtype}, weight {weight.dtype}: both must be float32")
+        raise TypeError(f"{name}: x is {x.dtype}, weight {weight.dtype}: both must be float32")
     if x.dim() != 4 or weight.dim() != 4 or tuple(weight.shape[2:]) != (3, 3):
-        raise ValueError(f"conv3x3: x {tuple(x.shape)} must be (N, H, W, cin) and weight "
+        raise ValueError(f"{name}: x {tuple(x.shape)} must be (N, H, W, cin) and weight "
                          f"{tuple(weight.shape)} (cout, cin, 3, 3)")
     cout, cin = weight.shape[:2]
     if x.shape[-1] != cin:
-        raise ValueError(f"conv3x3: x has {x.shape[-1]} channels, weight {cin}")
+        raise ValueError(f"{name}: x has {x.shape[-1]} channels, weight {cin}")
     if cin % 4 or cout % 4:
-        raise ValueError(f"conv3x3: cin {cin} and cout {cout} must be multiples of 4")
+        raise ValueError(f"{name}: cin {cin} and cout {cout} must be multiples of 4")
     if weight.device != x.device:
-        raise ValueError(f"conv3x3: weight is on {weight.device}, x on {x.device}")
+        raise ValueError(f"{name}: weight is on {weight.device}, x on {x.device}")
     if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("conv3x3: x must be contiguous (N, H, W, cin) rows, 16-byte aligned")
+        raise ValueError(f"{name}: x must be contiguous (N, H, W, cin) rows, 16-byte aligned")
+
+
+def _launch(name: str, wrapper, x: torch.Tensor, weight: torch.Tensor,
+            out: torch.Tensor) -> torch.Tensor:
+    """Launches ``csrc/<name>.cu`` once on x (checked by
+    :func:`_check_inputs`), the weight's cached split and ``out``, on the
+    current stream, and counts the launch on ``wrapper``; raises if the
+    launch fails."""
+    if out.numel() == 0:
+        return out
+    hi, lo = _split_weights(weight)
+    lib = cuda_build.load(f"{name}.cu", _declarer(name))
+    stream = torch.cuda.current_stream(x.device)
+    for t in (hi, lo):  # a split may be freed, when its weight changes, while this reads it
+        t.record_stream(stream)
+    n, h, w, cin = x.shape
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, f"tpc_{name}_forward")(
+            x.data_ptr(), hi.data_ptr(), lo.data_ptr(), out.data_ptr(), n, h, w, cin,
+            weight.shape[0], stream.cuda_stream)
+    if rc != 0:
+        msg = getattr(lib, f"tpc_{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+    count_launch(wrapper)
+    return out
 
 
 def _kernel_forward(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     _check_inputs(x, weight)
-    n, h, w, cin = x.shape
-    cout = weight.shape[0]
-    out = torch.empty((n, h, w, cout), device=x.device, dtype=x.dtype)
-    if out.numel() == 0:
-        return out
-    hi, lo = _split_weights(weight)
-    lib = cuda_build.load(_SOURCE, _declare)
-    stream = torch.cuda.current_stream(x.device)
-    for t in (hi, lo):  # a split may be freed, when its weight changes, while this reads it
-        t.record_stream(stream)
-    with torch.cuda.device(x.device):
-        rc = lib.tpc_conv3x3_forward(x.data_ptr(), hi.data_ptr(), lo.data_ptr(), out.data_ptr(),
-                                     n, h, w, cin, cout, stream.cuda_stream)
-    if rc != 0:
-        msg = lib.tpc_conv3x3_error_string(rc).decode()
-        raise RuntimeError(f"conv3x3 kernel launch failed: {msg} ({rc})")
-    count_launch(conv3x3)
-    return out
+    out = torch.empty(x.shape[:3] + weight.shape[:1], device=x.device, dtype=x.dtype)
+    return _launch("conv3x3", conv3x3, x, weight, out)
 
 
 def conv3x3(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,7 @@ from torch import nn
 
 from compression_tpu_torch.layers.channel_norm_kernel import fused_channel_norm
 from compression_tpu_torch.layers.conv3x3_kernel import conv3x3
+from compression_tpu_torch.layers.conv_up3x3_kernel import conv_up3x3
 from compression_tpu_torch.layers.signal_conv import (
     SignalConv2D,
     conv_nhwc,
@@ -70,19 +71,36 @@ def _conv(cin, cout, k, gen, **kw):
                         use_bias=True, generator=gen, **kw)
 
 
-def _takes_conv3x3(conv: SignalConv2D, x, weight) -> bool:
-    """Whether :func:`conv3x3` computes ``conv`` on ``x``, on the card: a
-    dense stride-1 3x3 correlation with zero "same" padding, in float32,
-    with widths that are multiples of 4, where no gradient is wanted (the
-    generator's ``conv_in`` and residual blocks as the codec decodes; the
-    encoder's 7x7 and stride-2 convolutions, the up-convolutions, float64
-    and training keep ``signal_conv``)."""
+def _kernel_takes(conv: SignalConv2D, x, weight) -> bool:
+    """What both hand-written convolutions ask of a layer and its input: the
+    card, a dense 3x3 kernel with zero "same" padding and no down-sampling,
+    float32, widths that are multiples of 4, and no gradient wanted."""
     wants_grad = torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad)
-    return (tuple(conv.support) == (3, 3) and conv.corr and conv.padding == "same_zeros"
-            and tuple(conv.strides_down) == (1, 1) and tuple(conv.strides_up) == (1, 1)
-            and not conv.channel_separable and x.dtype == torch.float32
-            and weight.dtype == torch.float32 and x.shape[-1] % 4 == 0
-            and weight.shape[0] % 4 == 0 and not wants_grad)
+    return (x.device.type == "cuda" and tuple(conv.support) == (3, 3)
+            and conv.padding == "same_zeros"
+            and tuple(conv.strides_down) == (1, 1) and not conv.channel_separable
+            and x.dtype == torch.float32 and weight.dtype == torch.float32
+            and x.shape[-1] % 4 == 0 and weight.shape[0] % 4 == 0 and not wants_grad)
+
+
+def _takes_conv3x3(conv: SignalConv2D, x, weight) -> bool:
+    """Whether :func:`conv3x3` computes ``conv`` on ``x``: a stride-1
+    correlation as :func:`_kernel_takes` has it (the generator's ``conv_in``
+    and residual blocks as the codec decodes; the encoder's 7x7 and stride-2
+    convolutions, the generator's 7x7 ``conv_out``, float64, the CPU and
+    training keep ``signal_conv``, and its up-convolutions go to
+    :func:`conv_up3x3` where :func:`_takes_conv_up3x3` holds)."""
+    return conv.corr and tuple(conv.strides_up) == (1, 1) and _kernel_takes(conv, x, weight)
+
+
+def _takes_conv_up3x3(conv: SignalConv2D, x, weight) -> bool:
+    """Whether :func:`conv_up3x3` computes ``conv`` on ``x``: a convolution
+    (``corr`` false) up-sampled by 2 with ``extra_pad_end``, as
+    :func:`_kernel_takes` has it (the generator's up-convolutions as the
+    codec decodes; training, float64, the CPU and every other family's 5x5
+    up-convolutions keep ``signal_conv``)."""
+    return (not conv.corr and tuple(conv.strides_up) == (2, 2) and conv.extra_pad_end
+            and _kernel_takes(conv, x, weight))
 
 
 _ENCODER_WIDTHS = (60, 120, 240, 480, 960)
@@ -90,12 +108,16 @@ _UP_WIDTHS = (480, 240, 120, 60)
 
 
 def _generator_conv(conv: SignalConv2D, x):
-    """The dense generator's convolution without its bias: :func:`conv3x3` on
-    the card where :func:`_takes_conv3x3` says so, else ``conv.convolve``."""
+    """The dense generator's convolution without its bias: :func:`conv3x3`
+    where :func:`_takes_conv3x3` says so, :func:`conv_up3x3` where
+    :func:`_takes_conv_up3x3` does, else ``conv.convolve``."""
     weight = conv.kernel()
-    if x.device.type == "cuda" and _takes_conv3x3(conv, x, weight):
+    if _takes_conv3x3(conv, x, weight):
         with span("hific/generator_conv"):
             return conv3x3(x, weight)
+    if _takes_conv_up3x3(conv, x, weight):
+        with span("hific/generator_upconv"):
+            return conv_up3x3(x, weight)
     return conv.convolve(x)
 
 

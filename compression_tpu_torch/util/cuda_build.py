@@ -3,8 +3,9 @@
 Each source is compiled on its own with nvcc for ``sm_90a`` into
 ``csrc/build/`` (listed in .gitignore), as a shared library with a plain C
 interface that the kernel's wrapper loads with ctypes. The library's name
-embeds a hash of the source and the target flags, so an edited source is
-rebuilt and a built one is reused. ``build_logs[source]`` keeps ptxas's
+embeds a hash of the source, the headers beside it (``csrc/*.cuh``) and
+the target flags, so an edited source or header is rebuilt and a built
+one is reused. ``build_logs[source]`` keeps ptxas's
 register/shared-memory/spill report of the last compile in this process.
 """
 
@@ -48,7 +49,8 @@ def build(source: str) -> pathlib.Path:
     library path. Safe to call from several threads at once for different
     sources: each writes a temporary file and renames it into place."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + ARCH.encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + ARCH.encode()).hexdigest()
     out_dir = CSRC / "build"
     out_dir.mkdir(exist_ok=True)
     so_path = out_dir / f"libtpc_{src.stem}_{digest[:16]}.so"

@@ -8,6 +8,7 @@ and the metric that reads its span. The kernel itself runs on the card
 import os
 import sys
 import threading
+import types
 
 import pytest
 import torch
@@ -99,22 +100,29 @@ def _generator():
     return archs.Generator(num_latents=220, num_residual_blocks=1, gen=torch.Generator())
 
 
+def _on_card(shape, dtype=torch.float32, requires_grad=False):
+    """A stand-in for a CUDA tensor: what the rule reads of one."""
+    return types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype, shape=shape,
+                                 requires_grad=requires_grad)
+
+
 def test_the_kernel_takes_conv_in_and_the_residual_blocks_without_grad():
     g = _generator()
-    latent = torch.zeros(1, 4, 6, 220)
-    wide = torch.zeros(1, 4, 6, 960)
-    for conv, x in ((g.conv_in, latent), (g.res0.conv0, wide), (g.res0.conv1, wide)):
-        w = conv.kernel()
+    for conv, cin in ((g.conv_in, 220), (g.res0.conv0, 960), (g.res0.conv1, 960)):
+        x, w = _on_card((1, 4, 6, cin)), conv.kernel()
         assert w.requires_grad
         assert not archs._takes_conv3x3(conv, x, w)  # autograd wants the weight's gradient
         with torch.no_grad():
             assert archs._takes_conv3x3(conv, x, w)
+            assert not archs._takes_conv3x3(conv, torch.zeros(1, 4, 6, cin), w)  # the CPU
         with torch.inference_mode():
             assert archs._takes_conv3x3(conv, x, w)
         assert archs._takes_conv3x3(conv, x, w.detach())
-        assert not archs._takes_conv3x3(conv, x.clone().requires_grad_(), w.detach())
+        assert not archs._takes_conv3x3(conv, _on_card((1, 4, 6, cin), requires_grad=True),
+                                        w.detach())
         with torch.no_grad():
-            assert not archs._takes_conv3x3(conv, x.double(), w.double())
+            assert not archs._takes_conv3x3(conv, _on_card((1, 4, 6, cin), torch.float64),
+                                            w.double())
 
 
 def test_the_kernel_takes_no_other_convolution():
@@ -124,16 +132,11 @@ def test_the_kernel_takes_no_other_convolution():
     g = _generator()
     e = archs.Encoder(220, torch.Generator())
     odd = archs._conv(6, 8, 3, torch.Generator())
-    cases = [(e.conv0, torch.zeros(1, 16, 16, 3)),
-             (e.conv1, torch.zeros(1, 16, 16, 60)),
-             (e.conv4, torch.zeros(1, 2, 2, 480)),
-             (g.up0, torch.zeros(1, 2, 2, 960)),
-             (g.up3, torch.zeros(1, 8, 8, 120)),
-             (g.conv_out, torch.zeros(1, 16, 16, 60)),
-             (odd, torch.zeros(1, 4, 4, 6))]
+    cases = [(e.conv0, 3), (e.conv1, 60), (e.conv4, 480), (g.up0, 960), (g.up3, 120),
+             (g.conv_out, 60), (odd, 6)]
     with torch.no_grad():
-        for conv, x in cases:
-            assert not archs._takes_conv3x3(conv, x, conv.kernel())
+        for conv, cin in cases:
+            assert not archs._takes_conv3x3(conv, _on_card((1, 4, 4, cin)), conv.kernel())
 
 
 def test_the_cpu_path_keeps_signal_conv(monkeypatch):

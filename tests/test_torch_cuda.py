@@ -1,6 +1,6 @@
 """Tests of the port that need the card: the CUDA kernels (K1 fused GDN at
 any width up to 192, the general GDN kernel at any width and dtype, K3/K2
-rANS encode/decode, HiFiC's ChannelNorm and 3x3 convolution) against their
+rANS encode/decode, HiFiC's ChannelNorm, 3x3 convolution and stride-2 3x3 up-convolution) against their
 plain twins, K1 and the general kernel
 under autograd, the single-program decode's CUDA graphs and their launch
 counts, the codecs on the card (bmshj2018 with either coder,
@@ -34,6 +34,7 @@ from compression_tpu_torch.layers import channel_norm_kernel
 from compression_tpu_torch.layers.channel_norm_kernel import (fused_channel_norm,
                                                            fused_channel_norm_reference)
 from compression_tpu_torch.layers.conv3x3_kernel import conv3x3, conv3x3_reference
+from compression_tpu_torch.layers.conv_up3x3_kernel import conv_up3x3, conv_up3x3_reference
 from compression_tpu_torch.layers.gdn_kernel import FusedGDN
 from compression_tpu_torch.entropy_models import continuous_batched, continuous_indexed
 from compression_tpu_torch.models import (b2018, bls2017, bmshj2018, common, hific, mbt2018,
@@ -962,8 +963,8 @@ def test_hific_joint_step_on_card_matches_cpu(cuda, monkeypatch):
     it on the card than 3x the CPU's distance, for the worst tensor and the
     median one (a ReLU at the 2 x 8 x 8 latents that flips where a forward
     is an ulp from 0 moves a gradient by ~1/128 of its sum, so float32 is
-    not held to the CPU's float32). No GDN, rANS or 3x3 convolution kernel
-    launches in a training step; ChannelNorm's kernel launches once a norm (13 calls) on
+    not held to the CPU's float32). No GDN, rANS, 3x3 convolution or
+    up-convolution kernel launches in a training step; ChannelNorm's kernel launches once a norm (13 calls) on
     the card, in float32 and in float64 (its general path)."""
     cfg = hific.HificConfig(name="hific-test", target_rate=0.3, num_latents=8,
                             num_hyperlatents=4, num_residual_blocks=1)
@@ -983,12 +984,12 @@ def test_hific_joint_step_on_card_matches_cpu(cuda, monkeypatch):
         lpips = hific_lpips.LPIPS(seed=5).requires_grad_(False).to(device, dtype)
         step, _, _ = hific.make_train_steps(model, disc, lpips, cfg)
         counts = (fused_gdn.launches, rans.rans_encode.launches, rans.rans_decode.launches,
-                  conv3x3.launches)
+                  conv3x3.launches, conv_up3x3.launches)
         norms = fused_channel_norm.launches
         metrics = step(x.to(device, dtype), None)
         assert queue == []
         assert (fused_gdn.launches, rans.rans_encode.launches,
-                rans.rans_decode.launches, conv3x3.launches) == counts
+                rans.rans_decode.launches, conv3x3.launches, conv_up3x3.launches) == counts
         assert fused_channel_norm.launches - norms == (13 if device == cuda else 0)
         tensors = {**{f"G {n}": p.grad.cpu() for n, p in model.named_parameters()},
                    **{f"D {n}": p.grad.cpu() for n, p in disc.named_parameters()},
@@ -1223,7 +1224,8 @@ def test_channel_norm_kernel_in_float64_matches_twin(cuda, c, flags):
 
 def test_hific_float32_norms_take_rows_as_the_convolutions_leave_them(cuda, monkeypatch):
     """Over a float32 hific-mi round trip on the card every convolution
-    before a norm (through ``SignalConv2D.convolve`` or the 3x3 kernel), and
+    before a norm (through ``SignalConv2D.convolve``, the 3x3 kernel or the
+    up-convolution kernel), and
     the latents before ``norm_in``, leave contiguous rows, so the networks'
     ``.contiguous()`` before a norm copies nothing there (cuDNN's float64
     convolutions leave NCHW memory, which it copies)."""
@@ -1246,6 +1248,7 @@ def test_hific_float32_norms_take_rows_as_the_convolutions_leave_them(cuda, monk
 
     monkeypatch.setattr(SignalConv2D, "convolve", spy(SignalConv2D.convolve, before_norm))
     monkeypatch.setattr(hific_archs, "conv3x3", spy(hific_archs.conv3x3))
+    monkeypatch.setattr(hific_archs, "conv_up3x3", spy(hific_archs.conv_up3x3))
     gpu.model.generator.register_forward_pre_hook(
         lambda module, args: seen.append(args[0].is_contiguous()))
     images = (np.random.RandomState(9).rand(2, 96, 130, 3) * 255).astype(np.uint8)
@@ -1330,32 +1333,87 @@ def test_conv3x3_follows_a_changed_weight(cuda):
     torch.testing.assert_close(second, -0.5 * first, rtol=1e-5, atol=1e-6)
 
 
-def test_conv3x3_rejects_what_it_cannot_take(cuda):
+@pytest.mark.parametrize("kernel", [conv3x3, conv_up3x3], ids=["conv3x3", "conv_up3x3"])
+def test_conv3x3_rejects_what_it_cannot_take(cuda, kernel):
     x, weight = _conv_inputs((1, 4, 4, 8, 12), cuda)
     with pytest.raises(TypeError):
-        conv3x3(x.double(), weight.double())
+        kernel(x.double(), weight.double())
     with pytest.raises(ValueError):
-        conv3x3(x.permute(0, 2, 1, 3), weight)  # not contiguous
+        kernel(x.permute(0, 2, 1, 3), weight)  # not contiguous
     with pytest.raises(ValueError):
-        conv3x3(x[..., :6].contiguous(), weight[:, :6].contiguous())  # cin 6
+        kernel(x[..., :6].contiguous(), weight[:, :6].contiguous())  # cin 6
     with pytest.raises(ValueError):
-        conv3x3(x, weight.cpu())
+        kernel(x, weight.cpu())
 
 
 def test_conv3x3_launches_on_the_codec_paths(cuda):
-    """hific-mi's device-coded codec on 2 images of 96x130 launches the
+    """hific-mi's device-coded codec on 2 images of 96x130 launches the 3x3
     kernel 19 times a decoded batch (conv_in and 9 residual blocks' two) and
-    none a compressed one; a bmshj2018 round trip launches it 0 times."""
+    the up-convolution kernel 4 times (up0-up3), neither a compressed one; a
+    bmshj2018 round trip launches neither."""
     gpu = hific.Codec(hific.HificModel(hific.get_config("hific-mi"), seed=3), device=cuda)
     images = (np.random.RandomState(8).rand(2, 96, 130, 3) * 255).astype(np.uint8)
-    before = conv3x3.launches
+
+    def counts():
+        return conv3x3.launches, conv_up3x3.launches
+
+    convs, ups = counts()
     blobs = gpu.compress_batch(images, coder="device")
-    assert conv3x3.launches == before
+    assert counts() == (convs, ups)
     gpu.decompress_batch(blobs)
-    assert conv3x3.launches == before + 19
+    assert counts() == (convs + 19, ups + 4)
     codec = bmshj2018.Codec(bmshj2018.load_model(CKPT), device=cuda)
     codec.decompress_batch(codec.compress_batch(images, coder="device"))
-    assert conv3x3.launches == before + 19
+    assert counts() == (convs + 19, ups + 4)
+
+
+# -- HiFiC's stride-2 3x3 up-convolution kernel ------------------------------------
+
+# (N, H, W, cin, cout): the generator's up0-up3 in a decoded batch of eight
+# 768x512 images, and at each tile width (120, 64) a shape whose tiles are
+# cut short in rows, columns, output channels and the last channel block.
+UP_SHAPES = [(8, 32, 48, 960, 480), (8, 64, 96, 480, 240), (8, 128, 192, 240, 120),
+             (8, 256, 384, 120, 60), (2, 7, 13, 228, 68), (2, 9, 19, 100, 28)]
+
+
+@pytest.mark.parametrize("shape", UP_SHAPES,
+                         ids=["up0", "up1", "up2", "up3", "ragged120", "ragged64"])
+def test_conv_up3x3_kernel_is_its_twin_and_as_near_float64_as_cudnn(cuda, shape):
+    """The kernel equals its twin on the card (float32 matrix products, TF32
+    off) within 2e-5 of the output's largest entry, and its largest error
+    against the float64 twin is no larger than cuDNN float32's through
+    ``signal_conv``'s phase convolution, which the generator ran before."""
+    from compression_tpu_torch.layers.signal_conv import signal_conv
+
+    x, weight = _conv_inputs(shape, cuda)
+    n, h, w, _, cout = shape
+    with torch.inference_mode():
+        before = conv_up3x3.launches
+        got = conv_up3x3(x, weight)
+        assert conv_up3x3.launches == before + 1
+        assert got.shape == (n, 2 * h, 2 * w, cout) and got.is_contiguous()
+        twin = conv_up3x3_reference(x, weight)
+        scale = twin.abs().max().item()
+        torch.testing.assert_close(got, twin, rtol=0, atol=2e-5 * scale)
+        del twin
+        want = conv_up3x3_reference(x.double(), weight.double())
+        err = (got.double() - want).abs().max().item()
+        del got
+        cudnn = signal_conv(x, weight, corr=False, strides_up=2, padding="same_zeros")
+        cudnn_err = (cudnn.double() - want).abs().max().item()
+    assert err <= cudnn_err, (err, cudnn_err)
+
+
+@pytest.mark.parametrize("shape", [UP_SHAPES[0], UP_SHAPES[3]], ids=["up0", "up3"])
+def test_conv_up3x3_rows_are_the_same_alone_as_in_a_batch(cuda, shape):
+    """An image's output is bit-equal alone and in a batch of 8, and on a
+    second run, at both tile widths."""
+    x, weight = _conv_inputs(shape, cuda, seed=1)
+    with torch.inference_mode():
+        batch = conv_up3x3(x, weight)
+        assert torch.equal(conv_up3x3(x, weight), batch)
+        for i in (0, 3, 7):
+            assert torch.equal(conv_up3x3(x[i:i + 1].contiguous(), weight)[0], batch[i])
 
 
 @pytest.mark.parametrize("coder", ["host", "device"])
