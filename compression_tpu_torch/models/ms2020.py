@@ -60,7 +60,7 @@ from compression_tpu_torch.models.device_coding import (
 from compression_tpu_torch.ops.math_ops import lower_bound
 from compression_tpu_torch.ops.round_ops import round_st
 from compression_tpu_torch.models.spatial_codec import SpatialCodecBase
-from compression_tpu_torch.parallel.pipeline import staggered_map
+from compression_tpu_torch.parallel.pipeline import Work
 from compression_tpu_torch.parallel.spatial import (
     as_shards,
     gather_rows,
@@ -69,6 +69,7 @@ from compression_tpu_torch.parallel.spatial import (
 )
 from compression_tpu_torch.util.image import pad_to_multiple_np, to_uint8
 from compression_tpu_torch.util.numeric import slim_int
+from compression_tpu_torch.util.profiling import span
 
 __all__ = [
     "Config",
@@ -301,10 +302,15 @@ class Codec(HyperpriorCodec):
 
     Encode is one asynchronous device chain on the codec's stream (with K3
     once a slice for the device coder), then one wait. Decode runs the batch
-    in lockstep, slice by slice: the host coder fetches each slice's rows
-    and range-decodes them (a host round trip a slice, not an image); the
-    device coder runs K2 once a slice and the whole chain without a host
-    sync until the image and the ok flags come back.
+    in lockstep, slice by slice, through the two stages of the shared
+    pipeline (``HyperpriorCodec.decompress_iter``, and
+    ``decompress_batch`` as one batch through both): for device-coded blobs
+    the dispatching thread enqueues the whole chain, K2 once a slice, the
+    synthesis and the copies of the image and the ok flags, without a host
+    sync, and a worker waits for the image; for host-coded blobs the worker
+    decodes the batch, fetching each slice's rows and range-decoding them (a
+    host round trip a slice, not an image), while another worker's batch
+    keeps the device busy.
 
     Encode/decode agreement: every value the decoder must reproduce, from
     z_hat to each slice's rows and decoded values, comes from functions
@@ -335,23 +341,26 @@ class Codec(HyperpriorCodec):
 
     def _supports(self, z_hat: torch.Tensor) -> list:
         """z_hat -> each image's (mean support, scale support)."""
-        return [self.model.supports_from_zhat(z_hat[b : b + 1])
-                for b in range(z_hat.shape[0])]
+        with span("ms2020/supports"):
+            return [self.model.supports_from_zhat(z_hat[b : b + 1])
+                    for b in range(z_hat.shape[0])]
 
     def _slice_rows(self, i: int, sups: list, decoded: list):
         """Slice i's (mu, uint8 CDF rows) for the batch, from each image's
         supports and decoded slices; encode and decode both call this."""
-        mus, sigmas = zip(*(self.model.slice_params(i, mu_sup, sigma_sup, dec)
-                            for (mu_sup, sigma_sup), dec in zip(sups, decoded)))
-        return torch.cat(mus), self.em.rows(torch.cat(sigmas))
+        with span("ms2020/slice_params"):
+            mus, sigmas = zip(*(self.model.slice_params(i, mu_sup, sigma_sup, dec)
+                                for (mu_sup, sigma_sup), dec in zip(sups, decoded)))
+            return torch.cat(mus), self.em.rows(torch.cat(sigmas))
 
     def _finish_slices(self, i: int, sups: list, decoded: list, y_hat_i) -> None:
         """Adds slice i's LRP to its values ``y_hat_i`` (``values + mu``) and
         appends the result to each image's decoded slices; encode and
         decode both call this."""
-        for b, ((mu_sup, _), dec) in enumerate(zip(sups, decoded)):
-            y = y_hat_i[b : b + 1]
-            dec.append(y + self.model.slice_lrp(i, mu_sup, dec + [y]))
+        with span("ms2020/slice_lrp"):
+            for b, ((mu_sup, _), dec) in enumerate(zip(sups, decoded)):
+                y = y_hat_i[b : b + 1]
+                dec.append(y + self.model.slice_lrp(i, mu_sup, dec + [y]))
 
     def _encode_slices(self, images: np.ndarray):
         """Pads and uploads uint8 images and enqueues the whole slice chain:
@@ -405,23 +414,30 @@ class Codec(HyperpriorCodec):
             z_hat = self.side_em.decompress(z_strings, tuple(int(v) for v in zshape))
         return streams, self._supports(self._to_device(z_hat)), xshape, K
 
-    def _finish_image(self, decoded: list, xshape, ok=None) -> np.ndarray:
-        """Synthesizes the decoded slices and fetches the image (and the
-        rANS ok flags); raises on a bad final rANS state."""
+    def _synth_image(self, decoded: list, xshape, ok=None) -> Work:
+        """Enqueues the synthesis of the decoded slices and the copies of
+        the image (and the rANS ok flags) to the host, then an event."""
         with self.timer.stage("dec/synth"):
             y_hat = torch.cat([torch.cat(dec, -1) for dec in decoded])
-            image = self._to_host(self._synthesize(y_hat))
-            ok = None if ok is None else self._to_host(torch.stack(ok))
-            event = self._event()
+            return Work(coder="host" if ok is None else "device",
+                        image=self._to_host(self._synthesize(y_hat)),
+                        ok=None if ok is None else self._to_host(torch.stack(ok)),
+                        event=self._event(), xshape=xshape)
+
+    def _fetch_image(self, w: Work) -> np.ndarray:
+        """Waits for the image; raises on a bad final rANS state; crops."""
         with self.timer.stage("dec/fetch_image"):
-            if event is not None:
-                event.synchronize()
-            image = image.numpy()
-        if ok is not None and not ok.cpu().numpy().all():
+            if w.event is not None:
+                with span("wait/device"):
+                    w.event.synchronize()
+            image = w.image.numpy()
+        if w.ok is not None and not w.ok.cpu().numpy().all():
             raise ValueError("corrupt device-coded bitstream (rANS state)")
-        return image[:, : int(xshape[0]), : int(xshape[1]), :]
+        return image[:, : int(w.xshape[0]), : int(w.xshape[1]), :]
 
     def _decompress_host(self, blobs: List[bytes]) -> np.ndarray:
+        """The host coder's whole decode: each slice's rows fetched and
+        range-decoded on the host in turn."""
         strings, sups, xshape, _ = self._decode_front(blobs, device=False)
         n = len(blobs)
         decoded: list = [[] for _ in range(n)]
@@ -432,16 +448,23 @@ class Codec(HyperpriorCodec):
                 event = self._event()
             with self.timer.stage("dec/fetch_rows"):
                 if event is not None:
-                    event.synchronize()
+                    with span("wait/device"):
+                        event.synchronize()
                 rows = rows.numpy()
             with self.timer.stage("dec/code_y"):
                 values = self.em.decode_symbols(slice_strings, rows.reshape(n, -1))
             with self.timer.stage("dec/finish_slice"):
                 values = self._to_device(slim_int(values.reshape(mu.shape)))
                 self._finish_slices(i, sups, decoded, self._apply_loc(values, mu))
-        return self._finish_image(decoded, xshape)
+        return self._fetch_image(self._synth_image(decoded, xshape))
 
-    def _decompress_rans(self, blobs: List[bytes]) -> np.ndarray:
+    def _dispatch_decode_any(self, blobs: List[bytes]) -> Work:
+        """The decode's device stage. Device-coded blobs: parse, z, the whole
+        slice chain with K2 once a slice, the synthesis and the copies, all
+        enqueued without a host sync. Host-coded blobs: nothing yet; the
+        host stage decodes them."""
+        if not self._is_device_coded(blobs[0]):
+            return Work(coder="host", blobs=blobs)
         words, sups, xshape, K = self._decode_front(blobs, device=True)
         n = len(blobs)
         decoded: list = [[] for _ in range(n)]
@@ -454,21 +477,14 @@ class Codec(HyperpriorCodec):
                 oks.append(ok)
                 self._finish_slices(i, sups, decoded,
                                     self._apply_loc(values.reshape(mu.shape), mu))
-        return self._finish_image(decoded, xshape, oks)
+        return self._synth_image(decoded, xshape, oks)
 
-    def decompress_batch(self, blobs: List[bytes]) -> np.ndarray:
-        """Decodes same-size .tfci blobs in lockstep, slice by slice (either
-        coder's format, detected from the blobs)."""
-        with self._on_device():
-            if self._is_device_coded(blobs[0]):
-                return self._decompress_rans(blobs)
-            return self._decompress_host(blobs)
-
-    def decompress_iter(self, blob_batches, depth: int = 2):
-        """Decodes an iterable of blob lists with ``depth`` batches in flight
-        on worker threads: while the host range-decodes one batch's slice,
-        the device computes another batch's slice parameters."""
-        yield from staggered_map(self.decompress_batch, blob_batches, depth)
+    def _finish_decode_any(self, w: Work) -> np.ndarray:
+        """The decode's host stage: the device coder's image fetched, or the
+        host coder's batch decoded with its round trip a slice."""
+        if w.coder == "host":
+            return self._decompress_host(w.blobs)
+        return self._fetch_image(w)
 
 
 def make_codec(model: MS2020Model, device="cuda") -> Codec:

@@ -8,10 +8,10 @@ decoded, and its LRP is added. Two things shorten a decode of many blobs:
 * slice batching (``ms2020.Codec.decompress_batch``): blobs of one size
   decode in lockstep, so a batch pays one round of host work a slice
   instead of one a slice and an image;
-* batch staggering (:func:`decompress_batch_pipelined`, ``Codec.
-  decompress_iter``): with ``depth`` batches in flight on worker threads,
-  the device computes one batch's slice parameters while the host decodes
-  another's slice.
+* batch staggering (:func:`decompress_batch_pipelined`, and
+  ``Codec.decompress_iter``'s pipeline for host-coded batches): with
+  ``depth`` batches in flight on worker threads, the device computes one
+  batch's slice parameters while the host decodes another's slice.
 """
 
 from __future__ import annotations

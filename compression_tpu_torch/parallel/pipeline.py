@@ -98,8 +98,11 @@ def staggered_map(fn: Callable, items: Iterable, depth: int = 2) -> Iterator:
     worker threads, yielding the results in input order.
 
     The decoder's staggering: a call that mixes device work with blocking
-    host range decoding (ms2020's slice-by-slice decode) lets another
-    call's device work run while it waits on the host."""
+    host range decoding lets another call's device work run while it waits
+    on the host. Its user is ``charm_pipeline.decompress_batch_pipelined``,
+    which decodes ms2020 blobs of either coder a batch a call; ms2020's
+    ``Codec.decompress_iter`` is a :class:`Pipeline`, whose workers
+    stagger its host-coded batches (a host round trip a slice) alike."""
     depth = max(1, int(depth))
     with cf.ThreadPoolExecutor(max_workers=depth) as pool:
         inflight: List[cf.Future] = []

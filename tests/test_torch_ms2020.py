@@ -4,7 +4,8 @@ the loss and every parameter's gradient at mse and msssim, the CDF tables,
 each slice's symbols, means and rows, host- and device-coded blobs
 byte-identical and decoded in the other package both ways, encode at batch
 3 with decode at batch 1, batch encode equal to per-image encode, the
-iterators and the pipelined decode, the rejections (mixed formats and
+iterators and the pipelined decode (the shared pipeline's decode equal to
+the one-batch decode for each format and for batches of both), the rejections (mixed formats and
 sizes, a corrupt stream, an overflowed stream), checkpoints with Adam's
 moments written by either package, and a few training steps on the CPU.
 Sizes are small (8 filters, 8 latents in 4 slices, 4 hyperlatents; the
@@ -328,6 +329,30 @@ def test_pipelined_decode_keeps_input_order(codecs):
     for blob, image in zip(blobs, out):
         np.testing.assert_array_equal(image, codec.decompress(blob))
     np.testing.assert_array_equal(out[2], out[5])  # same image, either coder
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("coders", [("device",) * 3, ("host",) * 3,
+                                    ("device", "host", "device", "host")],
+                         ids=["device", "host", "mixed"])
+def test_decompress_iter_gives_what_decompress_batch_gives(codecs, coders, depth):
+    """The decode runs on the codecs' shared pipeline (no override of
+    ``decompress_iter``): each batch, of either coder's blobs and in an
+    iterable whose batches alternate between the formats, comes back byte
+    for byte as the one-batch decode gives it, in order."""
+    from compression_tpu_torch.models.codec_base import HyperpriorCodec
+
+    assert ms2020.Codec.decompress_iter is HyperpriorCodec.decompress_iter
+    _, codec, _ = codecs
+    batches = [_images(2, 64, 64, seed=20 + i) for i in range(len(coders))]
+    blobs = [codec.compress_batch(b, coder=c) for b, c in zip(batches, coders)]
+    assert [codec._is_device_coded(b[0]) for b in blobs] == [c == "device" for c in coders]
+    want = [codec.decompress_batch(b) for b in blobs]
+    got = list(codec.decompress_iter(iter(blobs), depth=depth))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (2, 64, 64, 3) and g.dtype == np.uint8
+        assert g.tobytes() == w.tobytes()
 
 
 def test_decode_is_the_synthesis_of_the_chain(codecs):

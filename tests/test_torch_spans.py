@@ -2,19 +2,21 @@
 kept or emitted while recording is off; what recording keeps on two
 threads; the clock they share with ``torch.profiler``; the pipeline's batch
 ids and waits; ``train_step``'s three parts; ``StageTimer`` the same with
-recording on and off; ChannelNorm's span; ``trace`` inside a recording; many
-threads appending at once."""
+recording on and off; ChannelNorm's span; ms2020's spans on its slice
+chain and its decode on the shared pipeline; ``trace`` inside a recording;
+many threads appending at once."""
 
 import os
 import sys
 import threading
 import time
+from collections import Counter
 
 import numpy as np
 import pytest
 import torch
 
-from compression_tpu_torch.models import bmshj2018, common
+from compression_tpu_torch.models import bmshj2018, common, ms2020
 from compression_tpu_torch.models.hific.archs import ChannelNorm
 from compression_tpu_torch.parallel import Pipeline
 from compression_tpu_torch.util import profiling
@@ -22,6 +24,8 @@ from compression_tpu_torch.util.profiling import in_batch, recording, span
 
 torch.set_num_threads(1)
 SMALL = dict(num_filters=16, num_latents=16, num_hyperlatents=8)
+CHARM = dict(num_filters=8, num_latents=20, num_hyperlatents=4, num_slices=10)
+CHAIN = ("ms2020/supports", "ms2020/slice_params", "ms2020/slice_lrp")
 
 
 def _images(n, h, w, seed=0):
@@ -177,6 +181,60 @@ def test_channel_norm_opens_its_span():
         y = norm(x)
     assert [s.name for s in spans] == ["hific/channel_norm"]
     np.testing.assert_allclose(y.detach().mean(-1).numpy(), 0.0, atol=1e-6)
+
+
+class _Fired:
+    """An event that has fired: the card's ``torch.cuda.Event`` in a CPU
+    run, so that the waits on it are taken."""
+
+    def synchronize(self):
+        pass
+
+
+@pytest.fixture(scope="module")
+def charm_codec():
+    codec = ms2020.Codec(ms2020.MS2020Model(ms2020.Config(**CHARM), seed=0), device="cpu")
+    codec._event = _Fired
+    return codec
+
+
+def _round_trip(codec, coder, batches=3):
+    images = [_images(2, 64, 64, seed=s) for s in range(batches)]
+    with recording() as enc:
+        blobs = list(codec.compress_iter(images, depth=2, coder=coder))
+    with recording() as dec:
+        assert len(list(codec.decompress_iter(blobs, depth=2))) == batches
+    return enc, dec
+
+
+@pytest.mark.parametrize("coder", ["device", "host"])
+def test_ms2020_opens_its_chain_spans_once_a_batch_and_a_slice(charm_codec, coder):
+    """Each phase opens ``ms2020/supports`` once a batch, and
+    ``ms2020/slice_params`` and ``ms2020/slice_lrp`` once a batch and a
+    slice (10 slices), under the batch's id."""
+    for spans in _round_trip(charm_codec, coder):
+        by_batch = {}
+        for s in spans:
+            if s.name in CHAIN:
+                by_batch.setdefault(s.batch, Counter())[s.name] += 1
+        assert len(by_batch) == 3 and None not in by_batch
+        for counts in by_batch.values():
+            assert [counts[n] for n in CHAIN] == [1, 10, 10]
+
+
+def test_ms2020s_device_coded_decode_runs_on_the_shared_pipeline(charm_codec):
+    """The dispatching thread enqueues every batch's whole chain and waits
+    for the oldest batch under ``pipeline/wait``; a worker waits on the
+    batch's event under ``wait/device`` inside ``dec/fetch_image``."""
+    _enc, dec = _round_trip(charm_codec, "device")
+    main = threading.get_native_id()
+    chain = [s for s in dec if s.name in CHAIN or s.name == "dec/dispatch"]
+    assert len(chain) == 3 * 22 and all(s.thread == main for s in chain)
+    waits = [s for s in dec if s.name == "pipeline/wait"]
+    assert len(waits) == 3 and all(s.thread == main and s.batch is None for s in waits)
+    device = [s for s in dec if s.name == "wait/device"]
+    assert len(device) == 3 and {s.batch for s in device} == {s.batch for s in chain}
+    assert all(s.thread != main and s.parent == "dec/fetch_image" for s in device)
 
 
 def test_trace_inside_a_recording_keeps_its_spans_and_shows_them(tmp_path):
